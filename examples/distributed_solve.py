@@ -4,8 +4,8 @@
 Run with faked devices (correctness / topology dry-run):
   JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
       python examples/distributed_solve.py
-On a real multi-chip TPU slice the same code block-partitions the grid
-over ICI neighbors.
+On several GPUs the same code block-partitions the grid over the real
+devices.
 """
 
 import os

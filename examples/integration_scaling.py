@@ -45,17 +45,16 @@ def main():
     ap.add_argument(
         "--fast",
         action="store_true",
-        help="production transfer path: host-side curl + split16 wire "
-        "format (golden digits verified unchanged — "
-        "logs/headline_split16_r4.log); timings then reflect the "
-        "shipped configuration instead of raw float64 downloads",
+        help="reduced-transfer path: host-side curl + split16 wire "
+        "format (golden digits unchanged); timings then include that "
+        "download path instead of raw float64 downloads",
     )
     ap.add_argument(
         "--strict",
         action="store_true",
         help="mixed_inner_max=1: the reference's exact iterate sequence "
         "(the default defect groups move exactly one 18-table entry by "
-        "one final digit — RESULTS.md)",
+        "one final digit)",
     )
     args = ap.parse_args()
 

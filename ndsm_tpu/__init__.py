@@ -1,8 +1,8 @@
-"""NDSM-TPU: a TPU-native N-dimensional geometric-multigrid Poisson solver
-and 3D Coulomb-gauge vector-potential solver.
+"""ndsm_tpu: an N-dimensional geometric-multigrid Poisson solver and 3D
+Coulomb-gauge vector-potential solver in JAX.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of the NDSM
-library (reference: sag2021/ndsm, Fortran 2003 + OpenMP):
+A re-design of the capabilities of the NDSM library (reference:
+sag2021/ndsm, Fortran 2003 + OpenMP):
 
   * General N-dimensional geometric-multigrid Poisson solver: second-order
     finite differences, red-black Gauss-Seidel smoothing, V-cycles, mixed
@@ -13,20 +13,22 @@ library (reference: sag2021/ndsm, Fortran 2003 + OpenMP):
     B and vector potential A with B = curl(A), div(A) = 0
     (reference: fortran/ndsm_vector_potential.f90, ndsm.py).
 
-TPU-first design notes
-----------------------
-  * Smoother/residual/transfer run as fused XLA (and optionally Pallas)
-    kernels over static-shape arrays; the in-place Fortran red-black sweep
-    becomes two functional masked half-updates with identical semantics.
+Design notes
+------------
+  * Smoother/residual/transfer are plain jax.numpy/lax code over
+    static-shape arrays that XLA fuses; the in-place Fortran red-black
+    sweep becomes two functional half-updates with identical semantics
+    (color-compact storage by default, ops/stencils_compact.py).
   * Coordinate-based N-linear prolongation and its full-weighting adjoint
     (reference: fortran/ndsm_interp.f90) are separable per-axis linear maps
-    on uniform meshes; they are applied as small per-axis matmuls (MXU).
-  * Convergence-critical state is kept in float64 (emulated on TPU); the
-    hot V-cycle can run in float32 via outer defect correction
-    ("mixed" precision), which is algebraically identical for this linear
-    problem and preserves the vc_tol/ex_tol convergence contract.
+    on uniform meshes; they are applied as small per-axis matrix products
+    at ``Precision.HIGHEST``.
+  * Convergence-critical state is kept in float64; the hot V-cycle can run
+    in float32 via outer defect correction ("mixed" precision, the default
+    off the CPU), which is algebraically identical for this linear problem
+    and preserves the vc_tol/ex_tol convergence contract.
   * Scale-out is spatial domain decomposition with `shard_map` over a
-    `jax.sharding.Mesh`: 1-deep face-halo exchange per half-sweep over ICI,
+    `jax.sharding.Mesh`: 1-deep face-halo exchange per half-sweep,
     cross-shard psum/pmax for metrics, and replication of coarse levels.
 """
 

@@ -144,428 +144,9 @@ class MultiBCSolver:
                 S_stack[b][np.ix_(rows, rows)] = S
             self._coarse_S = S_stack
 
-        # Fused Pallas smoothing (batched lane-per-grid-axis kernel).
-        from ..utils.compat import resolve_use_pallas
-
-        self.use_pallas = resolve_use_pallas(getattr(options, "use_pallas", "auto"))
-        self._pallas_fns: dict = {}
-
-        # ---- Padded kernel levels (see MGEngine._plan_padding) ---------
-        # Unaligned levels adopt y/x-padded work storage so the zc
-        # kernels (built with real-face boundaries) cover sizes like the
-        # reference's 220^3 headline; the pad region stays identically
-        # zero (kernel-frozen, zero-padded transfer blocks).  All lanes
-        # must support the padded kernels for a level to be padded.
-        self._work_shapes: List[tuple] = [tuple(s) for s in hierarchy.shapes]
-        self._padded: List[bool] = [False] * hierarchy.ngrids
-        if (
-            self.use_pallas in ("on", "interpret")
-            and self.inner_dtype == jnp.float32
-            and hierarchy.ndim == 3
-            and options.ms >= 1
-        ):
-            self._plan_padding()
-        if any(self._padded):
-            from .engine import MGEngine
-
-            self._interp_w = [
-                [
-                    MGEngine._pad_mat(
-                        M, self._work_shapes[l][ax], self._work_shapes[l + 1][ax]
-                    )
-                    for ax, M in enumerate(self._interp[l])
-                ]
-                for l in range(hierarchy.ngrids - 1)
-            ]
-            self._restrict_w = [
-                [
-                    MGEngine._pad_mat(
-                        M, self._work_shapes[l + 1][ax], self._work_shapes[l][ax]
-                    )
-                    for ax, M in enumerate(self._restrict[l])
-                ]
-                for l in range(hierarchy.ngrids - 1)
-            ]
-        else:
-            self._interp_w = self._interp
-            self._restrict_w = self._restrict
-
-        # Double-float defect (per-lane zero-rhs kernels; this solver's
-        # right-hand sides are identically zero) — see ops/pallas_df.py
-        # and PoissonBVP.  Static per-lane bcs -> one kernel per lane.
-        self._df = False
-        self._df_lane_res = None
-        self._df_lane_upd = None
-        md = getattr(options, "mixed_defect", "auto")
-        if self.mode == "mixed" and md != "f64" and hierarchy.ndim == 3:
-            from ..ops import pallas_df
-            from .engine import _pallas_min_points
-
-            interp = self.use_pallas == "interpret"
-            want = (
-                self.use_pallas in ("on", "interpret")
-                if md == "auto"
-                else self.use_pallas != "off"
-            )
-            # Pair on WORK storage when level 0 is padded (kernel-side
-            # real-face logic; no per-group pad/unpad) — this brings
-            # the df32 defect to unaligned sizes like 220^3.
-            w0 = tuple(self._work_shapes[0])
-            rs = w0 != tuple(hierarchy.fine_shape)
-            rs = tuple(hierarchy.fine_shape) if rs else None
-            if (
-                want
-                and int(np.prod(hierarchy.fine_shape)) >= _pallas_min_points()
-                and pallas_df.df_residual_supported(
-                    w0, jnp.float32, interpret=interp, real_shape=rs
-                )
-            ):
-                fns = tuple(
-                    pallas_df.df_residual_3d(
-                        bcs, hierarchy.dq[0], w0,
-                        zero_rhs=True, interpret=interp, real_shape=rs,
-                    )
-                    for bcs in self.bcs_list
-                )
-                if all(f is not None for f in fns):
-                    self._df_lane_res = fns
-                    self._df = True
-                    # Update-fused variants (or None under the larger
-                    # VMEM footprint): apply the previous group's
-                    # correction in-kernel, no standalone df_add pass.
-                    upd = tuple(
-                        pallas_df.df_residual_3d(
-                            bcs, hierarchy.dq[0], w0, zero_rhs=True,
-                            interpret=interp, real_shape=rs, update=True,
-                        )
-                        for bcs in self.bcs_list
-                    )
-                    if all(f is not None for f in upd):
-                        self._df_lane_upd = upd
-        self.df_defect = self._df
-
         self._solve_jit = jax.jit(self._solve_impl, donate_argnums=(0,))
 
-    # -- padded-level plumbing -------------------------------------------
-
-    def _plan_padding(self) -> None:
-        """Adopt a padded work shape for every kernel-eligible level
-        whose real shape is unaligned, PROVIDED every lane's kernel
-        variants and pass widths are supported there (no XLA fallback
-        exists on padded storage — the masked sweep would reflect at
-        the pad edge instead of the real face)."""
-        from ..ops import pallas_zc
-        from .engine import _pallas_min_points, _pallas_nsweeps
-
-        interp = self.use_pallas == "interpret"
-        variants = ((False, False), (True, False), (False, True))
-        for l in range(self.h.ngrids - 1):
-            shape = self.h.shapes[l]
-            if int(np.prod(shape)) < _pallas_min_points():
-                continue
-            nz, ny, nx = shape
-            if ny % 8 == 0 and nx % 128 == 0:
-                continue  # aligned: plain kernels fire without padding
-            pshape = pallas_zc.padded_shape_3d(shape)
-            if pshape is None:
-                continue
-            widths = range(
-                1,
-                max(1, min(self.options.ms, _pallas_nsweeps(pshape))) + 1,
-            )
-            ok = all(
-                pallas_zc.zc_kernel_supported(
-                    pshape, bcs, jnp.float32, n, interpret=interp,
-                    residual=res, with_cor=cor, real_shape=tuple(shape),
-                )
-                for n in widths
-                for bcs in self.bcs_list
-                for (res, cor) in variants
-            )
-            if ok:
-                self._work_shapes[l] = pshape
-                self._padded[l] = True
-
-    def _zc_build_args(self, level: int):
-        """(shape, real_shape) for the zc builders at ``level``."""
-        return (
-            self._work_shapes[level],
-            tuple(self.h.shapes[level]) if self._padded[level] else None,
-        )
-
-    def _pad0(self, x):
-        """Real -> work shape at the finest level of a stacked array."""
-        w0, r0 = self._work_shapes[0], tuple(self.h.shapes[0])
-        if not self._padded[0] or tuple(x.shape[1:]) == w0:
-            return x
-        return jnp.pad(x, [(0, 0)] + [(0, w - r) for w, r in zip(w0, r0)])
-
-    def _unpad0(self, x):
-        """Work -> real shape at the finest level of a stacked array."""
-        r0 = tuple(self.h.shapes[0])
-        if tuple(x.shape[1:]) == r0:
-            return x
-        return x[(slice(None),) + tuple(slice(0, r) for r in r0)]
-
     # -- batched level ops ---------------------------------------------
-
-    def _pallas_fn(self, level: int, n: int):
-        from .engine import _pallas_min_points
-
-        key = (level, n)
-        if key in self._pallas_fns:
-            return self._pallas_fns[key]
-        fn = None
-        if (
-            self.use_pallas in ("on", "interpret")
-            and self.inner_dtype == jnp.float32
-            and self.h.ndim == 3
-            and int(np.prod(self.h.shapes[level])) >= _pallas_min_points()
-        ):
-            from ..ops import pallas_fused
-
-            fn = pallas_fused.fused_smooth_3d_batched(
-                self.bcs_list,
-                self._dq[level],
-                self.h.shapes[level],
-                n,
-                interpret=(self.use_pallas == "interpret"),
-            )
-        self._pallas_fns[key] = fn
-        return fn
-
-    def _zc_fns(self, level: int, n: int):
-        """Per-lane z-compact Pallas smoothers (ops/pallas_zc.py), or
-        None when any lane is unsupported.  Dense interface — lanes are
-        plain slices of the stacked state, no conversion passes."""
-        from .engine import _pallas_min_points
-
-        key = ("zc", level, n)
-        if key in self._pallas_fns:
-            return self._pallas_fns[key]
-        fn = None
-        if (
-            self.use_pallas in ("on", "interpret")
-            and self.inner_dtype == jnp.float32
-            and self.h.ndim == 3
-            and int(np.prod(self.h.shapes[level])) >= _pallas_min_points()
-        ):
-            from ..ops import pallas_zc
-
-            shape, rs = self._zc_build_args(level)
-            fns = tuple(
-                pallas_zc.zc_smooth_3d(
-                    bcs,
-                    self._dq[level],
-                    shape,
-                    n,
-                    interpret=(self.use_pallas == "interpret"),
-                    real_shape=rs,
-                )
-                for bcs in self.bcs_list
-            )
-            if all(f is not None for f in fns):
-                fn = fns
-        self._pallas_fns[key] = fn
-        return fn
-
-    def _smooth_zc_lane(self, ub, rb, b, level, n, ns_star):
-        """n z-compact kernel sweeps on ONE lane's dense (nz, ny, nx)
-        state — same pass composition as MGEngine.t_smooth."""
-        fns = self._zc_fns(level, ns_star)
-        f = fns[b]
-        q, rem = divmod(n, ns_star)
-        if q > 8:
-            ub = lax.fori_loop(0, q, lambda _, v: f(v, rb), ub)
-        else:
-            for _ in range(q):
-                ub = f(ub, rb)
-        if rem:
-            fr = self._zc_fns(level, rem)
-            if fr is not None:
-                ub = fr[b](ub, rb)
-            elif self._padded[level]:
-                raise RuntimeError(
-                    f"padded level {level}: zc kernel unavailable for "
-                    f"width {rem} — padding plan violated"
-                )
-            else:
-                for _ in range(rem):
-                    ub = stencils.rb_sweep(
-                        ub, rb, self._dq[level], self.bcs_list[b]
-                    )
-        return ub
-
-    def _compact_fns(self, level: int, n: int):
-        """Per-lane color-compact Pallas smoothers (ops/pallas_compact),
-        or None when any lane is unsupported.  The lanes run SERIALLY
-        inside the one compiled program: each kernel call saturates HBM
-        bandwidth on its own (99% of the roofline at 256^3), so a
-        lane-fused kernel would gain nothing — batching's win here is one
-        program/dispatch, not lane parallelism."""
-        from .engine import _pallas_min_points
-
-        key = ("compact", level, n)
-        if key in self._pallas_fns:
-            return self._pallas_fns[key]
-        fn = None
-        if (
-            self.use_pallas in ("on", "interpret")
-            and self.inner_dtype == jnp.float32
-            and self.h.ndim == 3
-            and int(np.prod(self.h.shapes[level])) >= _pallas_min_points()
-        ):
-            from ..ops import pallas_compact
-
-            fns = tuple(
-                pallas_compact.compact_smooth_3d(
-                    bcs,
-                    self._dq[level],
-                    self.h.shapes[level],
-                    n,
-                    interpret=(self.use_pallas == "interpret"),
-                )
-                for bcs in self.bcs_list
-            )
-            if all(f is not None for f in fns):
-                fn = fns
-        self._pallas_fns[key] = fn
-        return fn
-
-    def _smooth_compact_lane(self, ub, rb, bcs, fns, b, level, n, ns_star):
-        """n compact-kernel sweeps on ONE lane's (nz, ny, nx) state —
-        identical expression sequence to MGEngine._t_smooth_pallas_compact
-        so lane iterates stay bitwise-equal to standalone solves."""
-        from ..ops import stencils_compact as sc
-
-        nx = ub.shape[-1]
-        R, B = sc.split_colors(ub)
-        rR, rB = sc.split_colors(rb)
-        f = fns[b]
-        q, rem = divmod(n, ns_star)
-        if q > 1:
-            R, B = lax.fori_loop(0, q, lambda _, c: f(c[0], c[1], rR, rB), (R, B))
-        elif q == 1:
-            R, B = f(R, B, rR, rB)
-        if rem:
-            fr = self._compact_fns(level, rem)
-            if fr is not None:
-                R, B = fr[b](R, B, rR, rB)
-            else:
-                def body(_, c):
-                    return sc.rb_sweep_compact(
-                        c[0], c[1], rR, rB, self._dq[level], bcs, nx
-                    )
-
-                R, B = lax.fori_loop(0, rem, body, (R, B))
-        return sc.merge_colors(R, B, nx)
-
-    def _zc_res_fns(self, level: int, n: int):
-        """Per-lane residual-fused z-compact smoothers, or None."""
-        from .engine import _pallas_min_points
-
-        key = ("zc_res", level, n)
-        if key in self._pallas_fns:
-            return self._pallas_fns[key]
-        fn = None
-        if (
-            self.use_pallas in ("on", "interpret")
-            and self.inner_dtype == jnp.float32
-            and self.h.ndim == 3
-            and int(np.prod(self.h.shapes[level])) >= _pallas_min_points()
-        ):
-            from ..ops import pallas_zc
-
-            shape, rs = self._zc_build_args(level)
-            fns = tuple(
-                pallas_zc.zc_smooth_residual_3d(
-                    bcs,
-                    self._dq[level],
-                    shape,
-                    n,
-                    interpret=(self.use_pallas == "interpret"),
-                    real_shape=rs,
-                )
-                for bcs in self.bcs_list
-            )
-            if all(f is not None for f in fns):
-                fn = fns
-        self._pallas_fns[key] = fn
-        return fn
-
-    def _zc_cor_fns(self, level: int, n: int):
-        """Per-lane correction-fused z-compact smoothers, or None."""
-        from .engine import _pallas_min_points
-
-        key = ("zc_cor", level, n)
-        if key in self._pallas_fns:
-            return self._pallas_fns[key]
-        fn = None
-        if (
-            self.use_pallas in ("on", "interpret")
-            and self.inner_dtype == jnp.float32
-            and self.h.ndim == 3
-            and int(np.prod(self.h.shapes[level])) >= _pallas_min_points()
-        ):
-            from ..ops import pallas_zc
-
-            shape, rs = self._zc_build_args(level)
-            fns = tuple(
-                pallas_zc.zc_smooth_cor_3d(
-                    bcs,
-                    self._dq[level],
-                    shape,
-                    n,
-                    interpret=(self.use_pallas == "interpret"),
-                    real_shape=rs,
-                )
-                for bcs in self.bcs_list
-            )
-            if all(f is not None for f in fns):
-                fn = fns
-        self._pallas_fns[key] = fn
-        return fn
-
-
-    def _smooth_cor(self, u, cor, rhs, level, n):
-        """n post-smooth sweeps per lane on (u + cor), the add fused
-        into the first kernel pass when available (bitwise-identical to
-        _smooth(u + cor, ...) — see MGEngine.t_smooth_cor)."""
-        if n >= 1 and u.dtype == jnp.float32:
-            from .engine import _pallas_nsweeps
-
-            ns_star = min(n, _pallas_nsweeps(self._work_shapes[level]))
-            fns = self._zc_cor_fns(level, ns_star)
-            if fns is not None:
-                u = jnp.stack(
-                    [fns[b](u[b], cor[b], rhs[b]) for b in range(self.B)]
-                )
-                if n - ns_star:
-                    u = self._smooth(u, rhs, level, n - ns_star)
-                return u
-        return self._smooth(u + cor, rhs, level, n)
-
-    def _smooth_residual(self, u, rhs, level, n):
-        """n sweeps + residual per lane, residual fused into the final
-        pass when the kernels support it.  Returns (u, r)."""
-        if n >= 1 and u.dtype == jnp.float32:
-            from .engine import _pallas_nsweeps
-
-            ns_star = min(n, _pallas_nsweeps(self._work_shapes[level]))
-            rem = n % ns_star
-            last = rem if rem else ns_star
-            fns = self._zc_res_fns(level, last)
-            if fns is not None:
-                head = n - last
-                if head:
-                    u = self._smooth(u, rhs, level, head)
-                outs = [fns[b](u[b], rhs[b]) for b in range(self.B)]
-                return (
-                    jnp.stack([o[0] for o in outs]),
-                    jnp.stack([o[1] for o in outs]),
-                )
-        u = self._smooth(u, rhs, level, n)
-        return u, self._residual(u, rhs, level)
 
     def _sweep(self, u, rhs, level):
         w, w0 = stencils.stencil_weights(self._dq[level], u.dtype)
@@ -584,71 +165,6 @@ class MultiBCSolver:
         return u
 
     def _smooth(self, u, rhs, level, n):
-        # On a padded level, WORK-shaped arrays must use the real-face
-        # zc kernels (the masked/compact/fused forms built on the real
-        # shape would either trace-fail or reflect at the pad edge);
-        # REAL-shaped arrays (compat callers) take the real-shape paths.
-        on_work = tuple(u.shape[1:]) == tuple(self._work_shapes[level])
-        if u.dtype == jnp.float32:
-            from .engine import _pallas_nsweeps
-
-            ns_star = min(n, _pallas_nsweeps(self._work_shapes[level]))
-            if on_work and self._zc_fns(level, ns_star) is not None:
-                return jnp.stack(
-                    [
-                        self._smooth_zc_lane(u[b], rhs[b], b, level, n, ns_star)
-                        for b in range(self.B)
-                    ]
-                )
-            if self._padded[level] and on_work:
-                # _plan_padding guarantees the zc kernels at every
-                # composed width on padded levels.
-                raise RuntimeError(
-                    f"padded level {level}: zc kernels unavailable — "
-                    "padding plan violated"
-                )
-            fns = self._compact_fns(level, ns_star)
-            if fns is not None:
-                return jnp.stack(
-                    [
-                        self._smooth_compact_lane(
-                            u[b], rhs[b], self.bcs_list[b], fns, b, level, n, ns_star
-                        )
-                        for b in range(self.B)
-                    ]
-                )
-            pf = self._pallas_fn(level, ns_star)
-            if pf is not None:
-                from ..ops import pallas_fused
-
-                C = jnp.stack(
-                    [
-                        pallas_fused.mask_code_jax(self.h.shapes[level], bcs)
-                        for bcs in self.bcs_list
-                    ]
-                )
-                q, rem = divmod(n, ns_star)
-                if q > 1:
-                    u = lax.fori_loop(0, q, lambda _, v: pf(v, rhs, C), u)
-                elif q == 1:
-                    u = pf(u, rhs, C)
-                if rem:
-                    pr = self._pallas_fn(level, rem)
-                    if pr is not None:
-                        u = pr(u, rhs, C)
-                    else:
-                        u = lax.fori_loop(
-                            0, rem, lambda _, v: self._sweep(v, rhs, level), u
-                        )
-                return u
-        if self._padded[level] and on_work:
-            # The masked XLA sweep on padded storage would reflect at
-            # the pad edge (wrong BCs); padding is only planned for the
-            # f32 inner dtype, so this indicates a driver bug.
-            raise RuntimeError(
-                f"padded level {level}: non-f32 work-shaped smooth — "
-                "padding plan violated"
-            )
         return lax.fori_loop(0, n, lambda _, v: self._sweep(v, rhs, level), u)
 
     def _residual(self, u, rhs, level):
@@ -672,24 +188,17 @@ class MultiBCSolver:
         return e.reshape(rhs.shape)
 
     def _vcycle(self, u, rhs, ex_tol, nmax_exact):
-        if self._padded[0] and tuple(u.shape[1:]) == tuple(self.h.shapes[0]):
-            # Compat entry for real-shaped stacked inputs; the mixed
-            # drivers keep their iterates on work storage instead.
-            up, noconv = self._vcycle(
-                self._pad0(u), self._pad0(rhs), ex_tol, nmax_exact
-            )
-            return self._unpad0(up), noconv
         L = self.h.ngrids
         ms = self.options.ms
         us = [None] * L
         rhss = [None] * L
         us[0], rhss[0] = u, rhs
         for l in range(L - 1):
-            ul, r = self._smooth_residual(us[l], rhss[l], l, ms)
-            rhss[l + 1] = _apply_axis_matrices_b(r, self._restrict_w[l])
-            us[l] = ul
+            us[l] = self._smooth(us[l], rhss[l], l, ms)
+            r = self._residual(us[l], rhss[l], l)
+            rhss[l + 1] = _apply_axis_matrices_b(r, self._restrict[l])
             us[l + 1] = jnp.zeros(
-                (self.B,) + self._work_shapes[l + 1], dtype=u.dtype
+                (self.B,) + self.h.shapes[l + 1], dtype=u.dtype
             )
         if self.coarse_direct:
             us[L - 1] = self._coarse_solve(rhss[L - 1])
@@ -700,33 +209,21 @@ class MultiBCSolver:
             )
         for l in range(L - 2, -1, -1):
             uc = self._smooth(us[l + 1], rhss[l + 1], l + 1, ms)
-            cor = _apply_axis_matrices_b(uc, self._interp_w[l])
-            us[l] = self._smooth_cor(us[l], cor, rhss[l], l, ms)
+            cor = _apply_axis_matrices_b(uc, self._interp[l])
+            us[l] = self._smooth(us[l] + cor, rhss[l], l, ms)
         return us[0], noconv
 
     def _vcycle_du(self, u, rhs, ex_tol, nmax_exact, u_ref):
-        """_vcycle + per-lane inter-iterate metric vs ``u_ref``.  (An
-        earlier kernel-fused form of the metric measured neutral in
-        every end-to-end configuration and was removed —
-        PERF_NOTES.md round 7.)"""
+        """_vcycle + per-lane inter-iterate metric vs ``u_ref``."""
         u_new, noconv = self._vcycle(u, rhs, ex_tol, nmax_exact)
         return u_new, noconv, self._metric(u_new, u_ref)
 
     def _metric(self, a, b):
-        """Per-lane max/mean |a - b| over the grid axes.  On padded
-        finest-level storage the mean divisor is corrected to the REAL
-        point count (pad entries are identically zero in the
-        difference: kernel-frozen, zero-padded transfers)."""
+        """Per-lane max/mean |a - b| over the grid axes."""
         d = jnp.abs(a - b).reshape(self.B, -1)
         if self.options.du_max:
             return jnp.max(d, axis=1)
-        m = jnp.mean(d, axis=1)
-        if self._padded[0] and tuple(a.shape[1:]) == self._work_shapes[0]:
-            scale = float(np.prod(self._work_shapes[0])) / float(
-                np.prod(self.h.shapes[0])
-            )
-            m = m * jnp.asarray(scale, m.dtype)
-        return m
+        return jnp.mean(d, axis=1)
 
     def _coarse_relax(self, u, rhs, level, ex_tol, nmax_exact):
         """Per-lane relax-to-ex_tol with lane freezing (reference
@@ -764,7 +261,7 @@ class MultiBCSolver:
         s = jnp.max(jnp.abs(r0).reshape(B, -1), axis=1)
         s_safe = jnp.where(s > 0, s, jnp.ones_like(s))
         sb = s_safe.reshape(shape1)
-        r32 = self._pad0((r0 / sb).astype(self.inner_dtype))
+        r32 = (r0 / sb).astype(self.inner_dtype)
         eps32 = 32.0 * float(np.finfo(np.float32).eps)
         ex_tol_eff = jnp.maximum(ex_tol, eps32)
         e0 = jnp.zeros(r32.shape, dtype=self.inner_dtype)
@@ -816,152 +313,9 @@ class MultiBCSolver:
             e32, du_e, _, k, noconv = body(init)
         else:
             e32, du_e, _, k, noconv = lax.while_loop(cond, body, init)
-        e = self._unpad0(e32).astype(self.outer_dtype) * sb
+        e = e32.astype(self.outer_dtype) * sb
         e = jnp.where((s > 0).reshape(shape1), e, jnp.zeros_like(e))
         return u + e, noconv, du_of(du_e), k
-
-    def _mixed_group_df(
-        self, uh, ul, e_prev, ex_tol, nmax_exact, vc_tol, it_vec, nmax, inner_max
-    ):
-        """``_mixed_group`` with the stacked outer state as an (hi, lo)
-        f32 pair and the per-lane defect from the double-float zero-rhs
-        Pallas kernels (ops/pallas_df.py) — per-lane group semantics
-        unchanged, outer precision ~2^-48 instead of 2^-52.  Inner
-        V-cycles run on the UNSCALED defect (see
-        PoissonBVP._mixed_group_df); the eps32 coarse floor is scaled by
-        the cross-lane max|r| — inert in this solver's coarse_direct
-        configurations.
-
-        Pending-correction flow (see PoissonBVP._mixed_group_df):
-        ``e_prev`` (previous group's stacked correction, or None) is
-        applied in-kernel when the update-fused variants exist; the
-        group's own correction returns UNAPPLIED.  The driver lane-masks
-        the accepted (pair, pending) and applies the final correction
-        once — a frozen lane keeps its pre-update pair and its pending
-        correction, so each lane's iterate sequence stays identical to a
-        standalone solve."""
-        from ..ops.pallas_df import df_add
-
-        B = self.B
-        shape1 = (B,) + (1,) * (uh.ndim - 1)
-        if e_prev is not None and self._df_lane_upd is None:
-            uh, ul = df_add(uh, ul, e_prev)
-            e_prev = None
-        if e_prev is not None:
-            outs = [
-                self._df_lane_upd[b](uh[b], ul[b], e_prev[b]) for b in range(B)
-            ]
-            uh = jnp.stack([o[2] for o in outs])
-            ul = jnp.stack([o[3] for o in outs])
-        else:
-            outs = [self._df_lane_res[b](uh[b], ul[b]) for b in range(B)]
-        r32 = jnp.stack([o[0] for o in outs])
-        s = jnp.max(jnp.stack([jnp.max(o[1]) for o in outs])).astype(
-            self.outer_dtype
-        )
-        eps32 = 32.0 * float(np.finfo(np.float32).eps)
-        ex_tol_eff = jnp.maximum(ex_tol, eps32 * s)
-        e0 = jnp.zeros(r32.shape, dtype=self.inner_dtype)
-        big32 = jnp.asarray(jnp.finfo(np.float32).max, dtype=jnp.float32)
-
-        def du_of(du_e):
-            return du_e.astype(self.outer_dtype)
-
-        def act_of(c):
-            _, du_e, du_prev, k, _ = c
-            first = k == 0
-            more = (
-                (du_of(du_e) >= vc_tol)
-                & (it_vec + k < nmax)
-                & (k < inner_max)
-            )
-            return first | more
-
-        def cond(c):
-            return jnp.any(act_of(c))
-
-        def body(c):
-            e, du_e, du_prev, k, nc = c
-            a = act_of(c)
-            e_new, noconv, du_new = self._vcycle_du(
-                e, r32, ex_tol_eff, nmax_exact, e
-            )
-            sel = a.reshape(shape1)
-            du_prev = jnp.where(a, du_e, du_prev)
-            return (
-                jnp.where(sel, e_new, e),
-                jnp.where(a, du_new, du_e),
-                du_prev,
-                k + a.astype(jnp.int32),
-                nc | (noconv & a),
-            )
-
-        init = (
-            e0,
-            jnp.full((B,), big32),
-            jnp.full((B,), big32),
-            jnp.zeros((B,), jnp.int32),
-            jnp.zeros((B,), bool),
-        )
-        if inner_max == 1:
-            e32, du_e, _, k, noconv = body(init)
-        else:
-            e32, du_e, _, k, noconv = lax.while_loop(cond, body, init)
-        return uh, ul, e32, noconv, du_of(du_e), k
-
-    def _solve_impl_df(self, u0, vc_tol, ex_tol, nmax, nmax_exact):
-        """``_solve_impl`` in double-float defect mode: the stacked
-        iterate is carried as an f32 pair (see PoissonBVP._solve_df_core)."""
-        from ..ops.pallas_df import df_add, df_decompose, df_reconstruct
-
-        inner_max = self._inner_max
-        vc_tol = jnp.asarray(vc_tol).astype(self.outer_dtype)
-        # The pair lives on work storage (padded or not): the df kernels
-        # handle real-face boundaries and zero the pad-region residual.
-        uh0, ul0 = (self._pad0(c) for c in df_decompose(u0))
-
-        def active_of(du, it):
-            return jnp.logical_and(it < nmax, du >= vc_tol)
-
-        def cond(c):
-            _, _, _, du, it, _ = c
-            return jnp.any(active_of(du, it))
-
-        def body(c):
-            uh, ul, e, du, it, flag = c
-            active = active_of(du, it)
-            uh_n, ul_n, e_new, noconv, du_new, ncyc = self._mixed_group_df(
-                uh, ul, e, ex_tol, nmax_exact, vc_tol, it, nmax, inner_max
-            )
-            # Frozen lanes keep their pre-update pair AND their pending
-            # correction (applied exactly once after the loop).
-            sel = active.reshape((self.B,) + (1,) * (uh.ndim - 1))
-            uh = jnp.where(sel, uh_n, uh)
-            ul = jnp.where(sel, ul_n, ul)
-            e = jnp.where(sel, e_new, e)
-            du = jnp.where(active, du_new, du)
-            it = it + jnp.where(active, ncyc, 0)
-            return (uh, ul, e, du, it, flag | (noconv & active))
-
-        # First group (all lanes active), then the fused loop; every
-        # lane's final pending correction is applied once at the end.
-        uh, ul, e, noconv0, du0, k0 = self._mixed_group_df(
-            uh0, ul0, None, ex_tol, nmax_exact, vc_tol,
-            jnp.zeros((self.B,), jnp.int32), nmax, inner_max,
-        )
-        init = (uh, ul, e, du0, jnp.asarray(k0, jnp.int32), noconv0)
-        uh, ul, e, du, it, flag = lax.while_loop(cond, body, init)
-        uh, ul = df_add(uh, ul, e)
-        u = self._unpad0(df_reconstruct(uh, ul, self.outer_dtype))
-        # nmax < 1 contract: no cycles run, u0 returned untouched.
-        ran = nmax >= 1
-        big = jnp.asarray(jnp.finfo(self.outer_dtype).max, self.outer_dtype)
-        u = jnp.where(ran, u, u0.astype(self.outer_dtype))
-        du = jnp.where(ran, du, jnp.full_like(du, big))
-        it = jnp.where(ran, it, jnp.zeros_like(it))
-        flag = jnp.logical_and(flag, ran)
-        ierr = jnp.where(du < vc_tol, IERR_SUCCESS, IERR_COVFAIL).astype(jnp.int32)
-        return u, du, it, ierr, flag
 
     # -- driver ---------------------------------------------------------
 
@@ -971,8 +325,6 @@ class MultiBCSolver:
         the component solves is materialized in-program (XLA folds
         ``0 - lap`` to ``-lap``: no dead 3x134 MB upload/stream); mixed
         V-cycles run in per-lane defect groups (``_mixed_group``)."""
-        if self._df:
-            return self._solve_impl_df(u0, vc_tol, ex_tol, nmax, nmax_exact)
         rhs = jnp.zeros_like(u0)
         mixed = self.mode != "fp64"
         inner_max = self._inner_max
@@ -1024,37 +376,13 @@ class MultiBCSolver:
         names = names or [""] * self.B
         u0 = jnp.asarray(u0_stack, self.outer_dtype)
         t0 = _time.perf_counter()
-        try:
-            u, du, it, ierr, flag = self._solve_jit(
-                u0,
-                jnp.float64(o.vc_tol),
-                jnp.float64(o.ex_tol),
-                jnp.int32(o.ncycles_max),
-                jnp.int32(o.niterex_max),
-            )
-        except Exception as e:
-            from .poisson import PoissonBVP
-
-            if not (
-                self.use_pallas != "off"
-                and PoissonBVP._is_kernel_compile_error(e)
-            ):
-                raise
-            import dataclasses as _dc
-
-            from ..utils.msgs import warn
-
-            fb = getattr(self, "_fallback", None)
-            if fb is None:
-                fb = MultiBCSolver(
-                    self.h, self.bcs_list, _dc.replace(o, use_pallas="off")
-                )
-                self._fallback = fb
-            warn(
-                "ndsm_tpu: batched Pallas kernel failed to compile for "
-                f"{self.h.fine_shape}; retrying with the XLA smoother"
-            )
-            return fb.solve(u0_stack, names=names)
+        u, du, it, ierr, flag = self._solve_jit(
+            u0,
+            jnp.float64(o.vc_tol),
+            jnp.float64(o.ex_tol),
+            jnp.int32(o.ncycles_max),
+            jnp.int32(o.niterex_max),
+        )
         du, it, ierr, flag = jax.device_get((du, it, ierr, flag))
         wall = _time.perf_counter() - t0
         infos = [

@@ -2,9 +2,9 @@
 
 The reference's ``solve_exact`` relaxes the coarsest grid until the
 inter-iterate change is <= ex_tol — potentially thousands of sweeps on a
-tiny array (ndsm_multigrid_core.f90:728-800).  On TPU each tiny sweep
-inside a ``lax.while_loop`` costs dispatch-bound microseconds, making the
-coarse solve a latency wall (SURVEY.md "hard parts").
+tiny array (ndsm_multigrid_core.f90:728-800).  On an accelerator each
+tiny sweep inside a ``lax.while_loop`` costs launch-bound microseconds,
+making the coarse solve a latency wall (SURVEY.md "hard parts").
 
 Because the coarsest operator is a fixed small matrix, we can instead
 precompute (at trace time, in numpy float64) the exact solve:
@@ -116,7 +116,7 @@ def build_coarse_matrix_from_operator(
     — no per-operator stencil re-derivation, and assembly/solve
     consistency is guaranteed by construction.  The reference has no
     counterpart (its only coarse solve is relax-to-ex_tol,
-    ndsm_multigrid_core.f90:728-800); this is the TPU engine's
+    ndsm_multigrid_core.f90:728-800); this is the engine's
     one-matvec coarse solve made available to every custom operator,
     not just the built-ins with hand-assembled matrices.
 

@@ -26,6 +26,7 @@ level is smoothed ms more times *after* solve_exact.
 
 from __future__ import annotations
 
+import functools
 from typing import List, Sequence
 
 import jax
@@ -45,36 +46,24 @@ from .coarse import build_coarse_solver_matrix
 _COARSE_DIRECT_MAX = 4096
 
 
-def _pallas_min_points() -> int:
-    """Smallest level (in points) routed to the fused Pallas smoother;
-    below it the tiled kernel is latency-bound and XLA wins.  Env
-    NDSM_TPU_PALLAS_MIN_POINTS overrides (tests set it to 0)."""
-    import os
-
-    return int(os.environ.get("NDSM_TPU_PALLAS_MIN_POINTS", 128 * 128 * 64))
-
-
-def _pallas_nsweeps(shape=None) -> int:
-    """Sweeps fused per Pallas HBM pass.  Env NDSM_TPU_PALLAS_NSWEEPS
-    pins a global width; otherwise the width is chosen PER LEVEL by
-    ops/pallas_zc.auto_pass_width (round-5 calibration: 2 on fine
-    production levels, deeper only where the tile fraction is >= 0.6 —
-    the window-capped coarse levels).  ``shape=None`` (the sharded
-    engine's local blocks, whose fractions follow the sharded picker)
-    keeps the fixed default of 2."""
-    import os
-
-    env = os.environ.get("NDSM_TPU_PALLAS_NSWEEPS")
-    if env is not None:
-        return max(1, int(env))
-    if shape is None or len(shape) != 3:
-        return 2
-    from ..ops.pallas_zc import auto_pass_width
-
-    return auto_pass_width(tuple(int(s) for s in shape), 8)
-
-
 __all__ = ["MGEngine"]
+
+
+def _scoped(name: str):
+    """Run a level primitive under ``jax.named_scope(name)``: the scope
+    lands in the compiled ops' metadata, so a profiler trace can charge
+    device time to smoothing, residual, transfers and the coarse solve
+    (scripts/trace_smoother_share.py).  No effect on the computation."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def scoped(*args, **kwargs):
+            with jax.named_scope(name):
+                return fn(*args, **kwargs)
+
+        return scoped
+
+    return wrap
 
 
 class MGEngine:
@@ -96,7 +85,6 @@ class MGEngine:
         shard_spec=None,
         coarse_direct: bool = False,
         compact_smoother: bool = True,
-        use_pallas: str = "off",
         operator=None,
     ):
         self.h = hierarchy
@@ -107,22 +95,14 @@ class MGEngine:
         self.shard_spec = shard_spec
         # Injected operator (mg/operator.py — the MG_RELAX/MG_RESIDUAL
         # extension point, reference ndsm_multigrid_core.f90:106-136).
-        # None = the built-in Poisson stencil stack with its Pallas/
-        # compact fast paths; an MGOperator routes every sweep/residual
-        # through its traceable methods instead (fast paths off — they
-        # encode the Poisson stencil).
+        # None = the built-in Poisson stencil stack with its compact fast
+        # path; an MGOperator routes every sweep/residual through its
+        # traceable methods instead (fast path off — it encodes the
+        # Poisson stencil).
         self.operator = operator
         if operator is not None:
-            use_pallas = "off"
             compact_smoother = False
-        # Fused Pallas smoother (ops/pallas_fused.py): "on"/"interpret"
-        # route eligible levels (3D float32, big enough, not all-Neumann,
-        # unsharded) to the multi-sweep fused kernel; anything else falls
-        # back to the XLA formulations below.  Resolution ("auto" + probe)
-        # happens in PoissonBVP via utils.compat.resolve_use_pallas.
-        self.use_pallas = use_pallas if shard_spec is None else "off"
-        self._pallas_fns = {}
-        # Color-compact smoothing halves the sweep's HBM traffic; it is
+        # Color-compact smoothing halves the sweep's memory traffic; it is
         # bit-equivalent to the masked formulation up to rounding (see
         # ops/stencils_compact.py). Disabled under GSPMD sharding for now
         # (the parity-split layout interacts poorly with the partitioner).
@@ -168,126 +148,6 @@ class MGEngine:
                 [restrict_matrix_1d(c, f) for f, c in zip(fine, coarse)]
             )
 
-        # ---- Padded kernel levels ------------------------------------
-        # Levels whose REAL shape is not kernel-aligned (nx % 128,
-        # ny % 8) but whose y/x-padded shape is run on aligned padded
-        # storage: the zc kernels apply boundary reflection/freezing at
-        # the REAL faces (real_shape arg) and the pad region stays
-        # identically zero through the V-cycle (frozen by the kernels,
-        # zeroed by the zero-padded transfer blocks).  This brings the
-        # Pallas smoother to unaligned sizes like the reference's
-        # 220^3 headline (fortran/ndsm_optimized.f90:40-191), where the
-        # XLA fallback runs at ~10% of HBM bandwidth.  z is never
-        # padded (the z-compact parity argument needs the even extent).
-        self._work_shapes: List[tuple] = [tuple(s) for s in hierarchy.shapes]
-        self._padded: List[bool] = [False] * hierarchy.ngrids
-        if (
-            self.use_pallas in ("on", "interpret")
-            and self.dtype == jnp.float32
-            and hierarchy.ndim == 3
-            and not stencils.is_all_neumann(self.bcs)
-        ):
-            self._plan_padding()
-        if any(self._padded):
-            self._interp_mats_w = [
-                [
-                    self._pad_mat(
-                        M, self._work_shapes[l][ax], self._work_shapes[l + 1][ax]
-                    )
-                    for ax, M in enumerate(self._interp_mats[l])
-                ]
-                for l in range(hierarchy.ngrids - 1)
-            ]
-            self._restrict_mats_w = [
-                [
-                    self._pad_mat(
-                        M, self._work_shapes[l + 1][ax], self._work_shapes[l][ax]
-                    )
-                    for ax, M in enumerate(self._restrict_mats[l])
-                ]
-                for l in range(hierarchy.ngrids - 1)
-            ]
-        else:
-            self._interp_mats_w = self._interp_mats
-            self._restrict_mats_w = self._restrict_mats
-
-    # ------------------------------------------------------------------
-    # Padded-level plumbing
-    # ------------------------------------------------------------------
-
-    @staticmethod
-    def _pad_mat(M: np.ndarray, rows: int, cols: int) -> np.ndarray:
-        """Embed a transfer matrix in a zero (rows, cols) block: real
-        rows read only real columns; pad rows produce zeros — which is
-        what keeps the pad region of every level identically zero."""
-        if M.shape == (rows, cols):
-            return M
-        out = np.zeros((rows, cols), dtype=M.dtype)
-        out[: M.shape[0], : M.shape[1]] = M
-        return out
-
-    def _plan_padding(self) -> None:
-        """Adopt a padded work shape for every kernel-eligible level
-        whose real shape is unaligned, PROVIDED every kernel variant
-        and pass width the engine composes from is supported there
-        (there is no XLA fallback on padded storage — the masked sweep
-        would reflect at the pad edge instead of the real face)."""
-        from ..ops import pallas_zc
-
-        if self.ms < 1:
-            return  # smooth-free cycles never touch the kernels
-        interp = self.use_pallas == "interpret"
-        for l in range(self.h.ngrids - 1):
-            shape = self.h.shapes[l]
-            if int(np.prod(shape)) < _pallas_min_points():
-                continue
-            nz, ny, nx = shape
-            if ny % 8 == 0 and nx % 128 == 0:
-                continue  # aligned: plain kernels fire without padding
-            pshape = pallas_zc.padded_shape_3d(shape)
-            if pshape is None:
-                continue
-            # Every width the engine can compose on THIS padded shape
-            # (the per-level auto width and everything below it).
-            widths = range(
-                1, max(1, min(self.ms, _pallas_nsweeps(pshape))) + 1
-            )
-            ok = True
-            for n in widths:
-                for builder in (
-                    pallas_zc.zc_smooth_3d,
-                    pallas_zc.zc_smooth_cor_3d,
-                    pallas_zc.zc_smooth_residual_3d,
-                ):
-                    if (
-                        builder(
-                            self.bcs, self._dq[l], pshape, n,
-                            interpret=interp, real_shape=shape,
-                        )
-                        is None
-                    ):
-                        ok = False
-                        break
-                if not ok:
-                    break
-            if ok:
-                self._work_shapes[l] = pshape
-                self._padded[l] = True
-
-    def t_pad0(self, x):
-        """Real -> work shape at the finest level (zero padding)."""
-        w0, r0 = self._work_shapes[0], tuple(self.h.shapes[0])
-        if not self._padded[0] or tuple(x.shape) == w0:
-            return x
-        return jnp.pad(x, [(0, w - r) for w, r in zip(w0, r0)])
-
-    def t_unpad0(self, x):
-        """Work -> real shape at the finest level (slice)."""
-        r0 = tuple(self.h.shapes[0])
-        if tuple(x.shape) == r0:
-            return x
-        return x[tuple(slice(0, r) for r in r0)]
-
     # ------------------------------------------------------------------
     # Level primitives
     # ------------------------------------------------------------------
@@ -307,354 +167,11 @@ class MGEngine:
             )
         return self._constrain(stencils.rb_sweep(u, rhs, dq, self.bcs), level)
 
-    def _pallas_eligible(self, level: int) -> bool:
-        return (
-            self.use_pallas in ("on", "interpret")
-            and self.dtype == jnp.float32
-            and self.h.ndim == 3
-            and int(np.prod(self.h.shapes[level])) >= _pallas_min_points()
-        )
-
-    def _pallas_2d_eligible(self, level: int) -> bool:
-        """2D levels route to the VMEM-resident kernel
-        (ops/pallas_v2d.py — the chi-face smoother; reference
-        red_black_gauss_2D, fortran/ndsm_optimized.f90:199-334).
-
-        OFF by default (NDSM_TPU_PALLAS_2D=1 enables): measured on chip
-        at the production 512^2 x 6-lane chi configuration, the kernel
-        is parity-correct but NEUTRAL on speed (t_smooth 1.02 vs
-        1.08 ms; end-to-end batched chi solve 0.98x — the vmapped XLA
-        2D path runs at ~33% of HBM here, not the 3D path's ~10%, and
-        the whole device-resident chi compute is ~44 ms at 512^3, ~2%
-        of the pipeline), while each kernel variant costs ~1 min of
-        remote compile on cold runs.  PERF_NOTES.md round 7."""
-        import os
-
-        if os.environ.get("NDSM_TPU_PALLAS_2D", "0") != "1":
-            return False
-        gate = int(os.environ.get("NDSM_TPU_PALLAS2D_MIN_POINTS", 128 * 128))
-        return (
-            self.use_pallas in ("on", "interpret")
-            and self.dtype == jnp.float32
-            and self.h.ndim == 2
-            and int(np.prod(self.h.shapes[level])) >= gate
-        )
-
-    def _pallas_smooth_fn(self, level: int, n: int):
-        """Fused (dense) Pallas smoother for (level, n sweeps), or None
-        when the configuration is unsupported (lazy-built, memoized)."""
-        key = (level, n)
-        if key in self._pallas_fns:
-            return self._pallas_fns[key]
-        fn = None
-        if self._pallas_eligible(level):
-            from ..ops import pallas_fused
-
-            shape = self.h.shapes[level]
-            call = pallas_fused.fused_smooth_3d(
-                self.bcs,
-                self._dq[level],
-                shape,
-                n,
-                interpret=(self.use_pallas == "interpret"),
-                with_mask_arg=True,
-            )
-            if call is not None:
-                fn = call
-        self._pallas_fns[key] = fn
-        return fn
-
-    def _zc_build_args(self, level: int):
-        """(shape, real_shape) for the zc builders: the level's work
-        shape, plus the real extents when it is padded."""
-        return (
-            self._work_shapes[level],
-            self.h.shapes[level] if self._padded[level] else None,
-        )
-
-    def _pallas_zc_fn(self, level: int, n: int):
-        """z-compact Pallas smoother (ops/pallas_zc.py) for (level, n
-        sweeps), or None.  The production TPU path: dense HBM interface
-        (no XLA split/merge passes — those run at ~10% of bandwidth on
-        this chip), one stencil evaluation per point-sweep in VMEM;
-        measured 94% of the HBM roofline at 256^3 ns=2.  On padded
-        levels the kernel is built for the work shape with real-face
-        boundaries."""
-        key = ("zc", level, n)
-        if key in self._pallas_fns:
-            return self._pallas_fns[key]
-        fn = None
-        if self._pallas_eligible(level):
-            from ..ops import pallas_zc
-
-            shape, rs = self._zc_build_args(level)
-            fn = pallas_zc.zc_smooth_3d(
-                self.bcs,
-                self._dq[level],
-                shape,
-                n,
-                interpret=(self.use_pallas == "interpret"),
-                real_shape=rs,
-            )
-        elif self._pallas_2d_eligible(level):
-            from ..ops import pallas_v2d
-
-            fn = pallas_v2d.v2d_smooth(
-                self.bcs,
-                self._dq[level],
-                self.h.shapes[level],
-                n,
-                interpret=(self.use_pallas == "interpret"),
-            )
-        self._pallas_fns[key] = fn
-        return fn
-
-    def _pallas_zc_res_fn(self, level: int, n: int):
-        """Residual-fused z-compact smoother: n sweeps + the residual of
-        the swept state in one HBM pass (ops/pallas_zc.py), or None."""
-        key = ("zc_res", level, n)
-        if key in self._pallas_fns:
-            return self._pallas_fns[key]
-        fn = None
-        if self._pallas_eligible(level):
-            from ..ops import pallas_zc
-
-            shape, rs = self._zc_build_args(level)
-            fn = pallas_zc.zc_smooth_residual_3d(
-                self.bcs,
-                self._dq[level],
-                shape,
-                n,
-                interpret=(self.use_pallas == "interpret"),
-                real_shape=rs,
-            )
-        elif self._pallas_2d_eligible(level):
-            from ..ops import pallas_v2d
-
-            fn = pallas_v2d.v2d_smooth_residual(
-                self.bcs,
-                self._dq[level],
-                self.h.shapes[level],
-                n,
-                interpret=(self.use_pallas == "interpret"),
-            )
-        self._pallas_fns[key] = fn
-        return fn
-
-    def _pallas_zc_cor_fn(self, level: int, n: int):
-        """Correction-fused z-compact smoother: (u, cor, rhs) -> n sweeps
-        on (u + cor) in one HBM pass (ops/pallas_zc.py), or None."""
-        key = ("zc_cor", level, n)
-        if key in self._pallas_fns:
-            return self._pallas_fns[key]
-        fn = None
-        if self._pallas_eligible(level):
-            from ..ops import pallas_zc
-
-            shape, rs = self._zc_build_args(level)
-            fn = pallas_zc.zc_smooth_cor_3d(
-                self.bcs,
-                self._dq[level],
-                shape,
-                n,
-                interpret=(self.use_pallas == "interpret"),
-                real_shape=rs,
-            )
-        elif self._pallas_2d_eligible(level):
-            from ..ops import pallas_v2d
-
-            fn = pallas_v2d.v2d_smooth_cor(
-                self.bcs,
-                self._dq[level],
-                self.h.shapes[level],
-                n,
-                interpret=(self.use_pallas == "interpret"),
-            )
-        self._pallas_fns[key] = fn
-        return fn
-
-    def _pass_width(self, n: int, level: int = 0) -> int:
-        """Kernel sweeps fused per HBM pass: the 2D VMEM-resident kernel
-        runs ALL n sweeps in one pass (the level is resident — no halo
-        or traffic reason to chunk); the tiled 3D kernels use the
-        per-level measured-optimal fused width (_pallas_nsweeps)."""
-        if self.h.ndim == 2:
-            return min(n, 16)
-        return min(n, _pallas_nsweeps(self._work_shapes[level]))
-
-    def _pallas_zc_mean_fn(self, level: int):
-        """All-Neumann single-sweep pass with in-kernel mean machinery
-        (ops/pallas_zc.zc_smooth_mean_3d), or None.  Covers the 3D
-        all-Neumann configurations the multi-sweep kernels exclude
-        (reference handles them directly: ndsm_optimized.f90:173-189)."""
-        key = ("zc_mean", level)
-        if key in self._pallas_fns:
-            return self._pallas_fns[key]
-        fn = None
-        if self._pallas_eligible(level) and not self._padded[level]:
-            from ..ops import pallas_zc
-
-            fn = pallas_zc.zc_smooth_mean_3d(
-                self.bcs,
-                self._dq[level],
-                self.h.shapes[level],
-                interpret=(self.use_pallas == "interpret"),
-            )
-        self._pallas_fns[key] = fn
-        return fn
-
-    def _t_smooth_zc_mean(self, u, rhs, level: int, n: int, fzm):
-        """n reference sweeps (sweep, then subtract the global mean —
-        quirk Q7) composed from single-sweep kernel passes: the mean is
-        subtracted in-kernel on the NEXT pass's load, with one scalar
-        combine of the per-window sums between passes and one final
-        XLA subtraction.  Matches the XLA path to rounding (the sum's
-        reduction order differs from jnp.mean's tree)."""
-        N = float(np.prod(self.h.shapes[level]))
-        sub = jnp.zeros((8, 128), dtype=jnp.float32)
-        m = jnp.float32(0.0)
-        for _ in range(n):
-            u, sums = fzm(u, rhs, sub)
-            m = (jnp.sum(sums) / jnp.float32(N)).astype(jnp.float32)
-            sub = jnp.zeros((8, 128), dtype=jnp.float32) + m
-        return u - m
-
-    def t_smooth_cor(self, u, cor, rhs, level: int):
-        """ms post-smooth sweeps on (u + cor) — the V-cycle ascent's
-        correct-then-relax (reference: ndsm_multigrid_core.f90:659-682).
-        The correction add is fused into the first smoothing pass when
-        the kernel supports it (the standalone XLA add costs a full
-        array pass at ~10% of HBM bandwidth on this chip); results are
-        bitwise-identical to t_smooth(u + cor, ...)."""
-        n = self.ms
-        if n >= 1 and self._on_work_storage(u, level):
-            ns_star = self._pass_width(n, level)
-            fc = self._pallas_zc_cor_fn(level, ns_star)
-            if fc is not None:
-                u = fc(u, cor, rhs)
-                if n - ns_star:
-                    u = self.t_smooth(u, rhs, level, nsweeps=n - ns_star)
-                return u
-        return self.t_smooth(u + cor, rhs, level)
-
-    def t_smooth_residual(self, u, rhs, level: int):
-        """ms pre-smooth sweeps + residual, fusing the residual into the
-        final smoothing pass when the kernel supports it (the reference
-        pairs relax+residual the same way, ndsm_multigrid_core.f90:482-560).
-        Returns (u_smoothed, residual)."""
-        n = self.ms
-        if n >= 1 and self._on_work_storage(u, level):
-            ns_star = self._pass_width(n, level)
-            rem = n % ns_star
-            last = rem if rem else ns_star
-            fz = self._pallas_zc_res_fn(level, last)
-            if fz is not None:
-                head = n - last
-                if head:
-                    u = self.t_smooth(u, rhs, level, nsweeps=head)
-                return fz(u, rhs)
-        u = self.t_smooth(u, rhs, level)
-        return u, self.t_residual(u, rhs, level)
-
-    def _pallas_compact_fn(self, level: int, n: int):
-        """Color-compact Pallas smoother (ops/pallas_compact.py) for
-        (level, n sweeps), or None.  Preferred over the dense fused kernel
-        on eligible shapes: one stencil evaluation per point-sweep instead
-        of two, measured 99% vs 66% of the HBM roofline at 256^3 ns=2."""
-        key = ("compact", level, n)
-        if key in self._pallas_fns:
-            return self._pallas_fns[key]
-        fn = None
-        if self._pallas_eligible(level):
-            from ..ops import pallas_compact
-
-            fn = pallas_compact.compact_smooth_3d(
-                self.bcs,
-                self._dq[level],
-                self.h.shapes[level],
-                n,
-                interpret=(self.use_pallas == "interpret"),
-            )
-        self._pallas_fns[key] = fn
-        return fn
-
-    def _on_work_storage(self, x, level: int) -> bool:
-        """True when ``x`` lives in the level's kernel storage.  On a
-        padded level, REAL-shaped arrays (the reduced drivers, direct
-        t_* callers) take the XLA paths — valid real-face math — while
-        work-shaped arrays MUST use the real-face kernels."""
-        return not self._padded[level] or tuple(x.shape) == self._work_shapes[level]
-
+    @_scoped("mg_smooth")
     def t_smooth(self, u, rhs, level: int, nsweeps: int | None = None):
         n = self.ms if nsweeps is None else nsweeps
         if n == 0:
             return u
-        if not self._on_work_storage(u, level):
-            return self._t_smooth_xla(u, rhs, level, n)
-        # 3D all-Neumann: the per-sweep global mean needs single-sweep
-        # passes with a scalar combine between them (zc_smooth_mean_3d).
-        if self.h.ndim == 3 and stencils.is_all_neumann(self.bcs):
-            fzm = self._pallas_zc_mean_fn(level)
-            if fzm is not None:
-                return self._t_smooth_zc_mean(u, rhs, level, n, fzm)
-        # Fused Pallas smoothing: compose n sweeps from passes of the
-        # measured-optimal fused width (plus one remainder pass).  The
-        # mask-code array is built ONCE per smooth call (a traced XLA
-        # value — as a per-pass expression XLA fails to CSE/hoist it and
-        # the extra materializations cost ~40% of the smoothing phase).
-        ns_star = self._pass_width(n, level)
-        pz = self._pallas_zc_fn(level, ns_star)
-        if pz is not None:
-            q, rem = divmod(n, ns_star)
-            # Unroll small pass counts: a nested fori_loop around the
-            # pallas_call costs a full-array copy per iteration at the
-            # loop boundary (~1.4 ms per 256^3 pass on this chip).
-            if q > 8:
-                u = lax.fori_loop(0, q, lambda _, v: pz(v, rhs), u)
-            else:
-                for _ in range(q):
-                    u = pz(u, rhs)
-            if rem:
-                pr = self._pallas_zc_fn(level, rem)
-                if pr is not None:
-                    u = pr(u, rhs)
-                else:  # tiny remainder falls back to one XLA pass
-                    u = lax.fori_loop(
-                        0, rem, lambda _, v: self.t_sweep(v, rhs, level), u
-                    )
-            return u
-        if self._padded[level]:
-            # _plan_padding guarantees every composed width; an XLA
-            # fallback here would reflect at the pad edge (wrong BCs).
-            raise RuntimeError(
-                f"padded level {level}: zc kernel unavailable for width "
-                f"{ns_star} — padding plan violated"
-            )
-        pc = self._pallas_compact_fn(level, ns_star)
-        if pc is not None:
-            return self._t_smooth_pallas_compact(u, rhs, level, n, ns_star, pc)
-        pf = self._pallas_smooth_fn(level, ns_star)
-        if pf is not None:
-            from ..ops import pallas_fused
-
-            C = pallas_fused.mask_code_jax(self.h.shapes[level], self.bcs)
-            q, rem = divmod(n, ns_star)
-            if q > 1:
-                u = lax.fori_loop(0, q, lambda _, v: pf(v, rhs, C), u)
-            elif q == 1:
-                u = pf(u, rhs, C)
-            if rem:
-                pr = self._pallas_smooth_fn(level, rem)
-                if pr is not None:
-                    u = pr(u, rhs, C)
-                else:  # tiny remainder falls back to one XLA pass
-                    u = lax.fori_loop(
-                        0, rem, lambda _, v: self.t_sweep(v, rhs, level), u
-                    )
-            return u
-        return self._t_smooth_xla(u, rhs, level, n)
-
-    def _t_smooth_xla(self, u, rhs, level: int, n: int):
         if self.compact_smoother and stencils_compact.compact_supported(
             u.shape, self.bcs
         ):
@@ -667,39 +184,9 @@ class MGEngine:
             0, n, lambda _, v: self.t_sweep(v, rhs, level), u
         )
 
-    def _t_smooth_pallas_compact(self, u, rhs, level: int, n: int, ns_star: int, pc):
-        """n sweeps via the color-compact Pallas kernel: split the colors
-        once, run ceil(n/ns_star) fused passes on the half-width state (a
-        remainder pass uses its own kernel width, or XLA compact sweeps
-        when that width is unsupported), merge once.  Sweep-for-sweep
-        bitwise-equal to the XLA compact path (tests/test_pallas_compact)."""
-        nx = u.shape[-1]
-        dq = self._dq[level]
-        R, B = stencils_compact.split_colors(u)
-        rhs_R, rhs_B = stencils_compact.split_colors(rhs)
-        q, rem = divmod(n, ns_star)
-        if q > 1:
-            R, B = lax.fori_loop(
-                0, q, lambda _, c: pc(c[0], c[1], rhs_R, rhs_B), (R, B)
-            )
-        elif q == 1:
-            R, B = pc(R, B, rhs_R, rhs_B)
-        if rem:
-            pr = self._pallas_compact_fn(level, rem)
-            if pr is not None:
-                R, B = pr(R, B, rhs_R, rhs_B)
-            else:
-                def body(_, c):
-                    return stencils_compact.rb_sweep_compact(
-                        c[0], c[1], rhs_R, rhs_B, dq, self.bcs, nx
-                    )
-
-                R, B = lax.fori_loop(0, rem, body, (R, B))
-        return stencils_compact.merge_colors(R, B, nx)
-
     def _t_smooth_compact(self, u, rhs, level: int, n: int):
         """n sweeps in color-compact form: split once, sweep on the
-        half-width color arrays (~2x less HBM traffic per sweep), merge
+        half-width color arrays (~2x less memory traffic per sweep), merge
         once.  Results match the masked path to rounding."""
         nx = u.shape[-1]
         dq = self._dq[level]
@@ -718,15 +205,8 @@ class MGEngine:
             R, B = lax.fori_loop(0, n, body, (R, B))
         return stencils_compact.merge_colors(R, B, nx)
 
+    @_scoped("mg_residual")
     def t_residual(self, u, rhs, level: int):
-        if not self._on_work_storage(u, level):
-            pass  # real-shaped on a padded level: valid XLA math
-        elif self._padded[level]:
-            raise RuntimeError(
-                f"padded level {level}: XLA residual on work storage "
-                "would reflect at the pad edge — the residual-fused "
-                "kernel must cover it (padding plan violated)"
-            )
         if self.operator is not None:
             return self._constrain(
                 self.operator.residual(u, rhs, self._dq[level], self.bcs),
@@ -736,39 +216,29 @@ class MGEngine:
             stencils.poisson_residual(u, rhs, self._dq[level], self.bcs), level
         )
 
+    @_scoped("mg_restrict")
     def t_restrict(self, r, level: int):
-        """Restrict fine-level ``r`` at ``level`` to level+1 (work
-        shapes: zero-padded matrix blocks keep pad regions zero)."""
+        """Restrict fine-level ``r`` at ``level`` to level+1."""
         return self._constrain(
-            apply_axis_matrices(r, self._restrict_mats_w[level]), level + 1
+            apply_axis_matrices(r, self._restrict_mats[level]), level + 1
         )
 
+    @_scoped("mg_prolong")
     def t_prolong(self, u_c, level: int):
         """Prolong coarse ``u_c`` at ``level+1`` to ``level``."""
         return self._constrain(
-            apply_axis_matrices(u_c, self._interp_mats_w[level]), level
+            apply_axis_matrices(u_c, self._interp_mats[level]), level
         )
 
     def t_metric(self, u_new, u_old):
         dmax, dmean = du_metrics(u_new, u_old)
-        if (
-            not self.du_max
-            and self._padded[0]
-            and tuple(u_new.shape) == self._work_shapes[0]
-        ):
-            # mean over the REAL point count: pad entries are exactly
-            # zero (kernel-frozen, zero-padded transfers), so only the
-            # divisor needs correcting.
-            scale = float(np.prod(self._work_shapes[0])) / float(
-                np.prod(self.h.shapes[0])
-            )
-            dmean = dmean * jnp.asarray(scale, dmean.dtype)
         return dmax if self.du_max else dmean
 
     # ------------------------------------------------------------------
     # Coarse "exact" solve
     # ------------------------------------------------------------------
 
+    @_scoped("mg_coarse")
     def t_solve_exact(self, u, rhs, level: int, ex_tol, nmax_exact):
         """Relax until the inter-iterate change is <= ex_tol or nmax_exact
         sweeps (reference: solve_exact, ndsm_multigrid_core.f90:728-800).
@@ -799,6 +269,7 @@ class MGEngine:
     # Cycles
     # ------------------------------------------------------------------
 
+    @_scoped("mg_coarse")
     def t_coarse_solve_direct(self, rhs):
         """One-matvec coarse solve via the precomputed (pseudo)inverse
         (see mg/coarse.py); replaces the relax-until-ex_tol loop when
@@ -812,30 +283,18 @@ class MGEngine:
 
     def t_vcycle(self, u, rhs, ex_tol, nmax_exact):
         """One V-cycle on the finest level (reference: v_cycle,
-        ndsm_multigrid_core.f90:341-377).  Returns ``(u, coarse_noconv)``.
-
-        When the finest level is PADDED, work-shaped inputs pass
-        straight through (the defect-correction drivers keep their
-        iterate padded across the whole group loop — zero per-cycle
-        conversion cost); real-shaped inputs are padded on entry and
-        sliced on exit (compat path for direct callers)."""
-        if self._padded[0] and tuple(u.shape) == tuple(self.h.shapes[0]):
-            up, noconv = self.t_vcycle(
-                self.t_pad0(u), self.t_pad0(rhs), ex_tol, nmax_exact
-            )
-            return self.t_unpad0(up), noconv
+        ndsm_multigrid_core.f90:341-377).  Returns ``(u, coarse_noconv)``."""
         L = self.h.ngrids
         us = [None] * L
         rhss = [None] * L
         us[0], rhss[0] = u, rhs
 
-        # Descend (fine_to_coarse, :482-560); residual fused into the
-        # final pre-smooth pass where the kernel supports it.
+        # Descend (fine_to_coarse, :482-560).
         for l in range(L - 1):
-            ul, r = self.t_smooth_residual(us[l], rhss[l], l)
+            us[l] = self.t_smooth(us[l], rhss[l], l)
+            r = self.t_residual(us[l], rhss[l], l)
             rhss[l + 1] = self.t_restrict(r, l)
-            us[l] = ul
-            us[l + 1] = jnp.zeros(self._work_shapes[l + 1], dtype=self.dtype)
+            us[l + 1] = jnp.zeros(self.h.shapes[l + 1], dtype=self.dtype)
 
         # Coarsest-grid solve (:370)
         if self.coarse_direct and L > 1:
@@ -846,12 +305,11 @@ class MGEngine:
                 us[L - 1], rhss[L - 1], L - 1, ex_tol, nmax_exact
             )
 
-        # Ascend (coarse_to_fine, :593-684); correction add fused into
-        # the first post-smooth pass where the kernel supports it.
+        # Ascend (coarse_to_fine, :593-684): correct, then post-smooth.
         for l in range(L - 2, -1, -1):
             uc = self.t_smooth(us[l + 1], rhss[l + 1], l + 1)
             cor = self.t_prolong(uc, l)
-            us[l] = self.t_smooth_cor(us[l], cor, rhss[l], l)
+            us[l] = self.t_smooth(us[l] + cor, rhss[l], l)
 
         return us[0], noconv
 
@@ -859,14 +317,7 @@ class MGEngine:
         """t_vcycle PLUS the inter-iterate convergence metric against
         ``u_ref`` (the caller's saved pre-cycle iterate — reference
         du_metrics/update_u pairing, ndsm_multigrid_core.f90:808-853,
-        1077-1122).  Returns ``(u_new, coarse_noconv, du)``.
-
-        A kernel-fused form of the metric (per-window maxima emitted by
-        the final post-smooth pass) shipped in an earlier round and
-        measured NEUTRAL in every end-to-end solve configuration
-        (default/strict/batched all 0.98-1.00x on chip — the XLA du
-        pass overlaps inside the compiled program; PERF_NOTES.md round
-        7), so the plain t_metric pass is the production form."""
+        1077-1122).  Returns ``(u_new, coarse_noconv, du)``."""
         u_new, noconv = self.t_vcycle(u, rhs, ex_tol, nmax_exact)
         du = self.t_metric(u_new, u_ref)
         return u_new, noconv, du
@@ -874,13 +325,13 @@ class MGEngine:
     def t_two_grid(self, u, rhs, ex_tol, nmax_exact):
         """Two-grid correction scheme for testing (reference: two_grid,
         ndsm_multigrid_core.f90:385-410).  Returns ``(u, coarse_noconv)``."""
-        ul, r = self.t_smooth_residual(u, rhs, 0)
-        rhs_c = self.t_restrict(r, 0)
+        ul = self.t_smooth(u, rhs, 0)
+        rhs_c = self.t_restrict(self.t_residual(ul, rhs, 0), 0)
         u_c = jnp.zeros(self.h.shapes[1], dtype=self.dtype)
         u_c, noconv = self.t_solve_exact(u_c, rhs_c, 1, ex_tol, nmax_exact)
         u_c = self.t_smooth(u_c, rhs_c, 1)
         cor = self.t_prolong(u_c, 0)
-        return self.t_smooth_cor(ul, cor, rhs, 0), noconv
+        return self.t_smooth(ul + cor, rhs, 0), noconv
 
     def t_one_grid(self, u, rhs, ex_tol, nmax_exact):
         """Single-grid relax-to-convergence (reference: one_grid,

@@ -5,7 +5,7 @@ problem-specific relaxation/residual procedures through the abstract
 interfaces ``MG_RELAX``/``MG_RESIDUAL``
 (fortran/ndsm_multigrid_core.f90:106-136), and the Poisson layer plugs
 in via dispatch wrappers (fortran/ndsm_poisson.f90:163-276).  This
-module is the TPU-native counterpart: an :class:`MGOperator` bundles
+module is the JAX counterpart: an :class:`MGOperator` bundles
 the traceable per-level relax/residual functions (plus two optional
 hooks the reference expresses differently — a dense coarse-operator
 assembly for the direct coarse solve, and a nullspace declaration),
@@ -16,7 +16,7 @@ precision, history, checkpointing, batching via vmap) then runs the
 injected operator: the mixed outer defect residual routes through
 ``MGEngine.t_residual`` and therefore through the operator as well.
 
-Design notes (TPU-first, deliberately different from the reference):
+Design notes (deliberately different from the reference):
 
   * The reference passes bare subroutines that mutate ``this%u(g_id)``
     in place; here an operator is a *hashable value object* whose
@@ -27,11 +27,11 @@ Design notes (TPU-first, deliberately different from the reference):
     spacings, f64) rather than through a mutable handle: each level
     re-discretizes the operator exactly like the reference's wrappers
     re-read ``this%meshes(:,g_id)``.
-  * The engine's Pallas/compact fast paths encode the Poisson stencil
-    and stay reserved for the default (``operator=None``) engine; an
+  * The engine's color-compact fast path encodes the Poisson stencil
+    and stays reserved for the default (``operator=None``) engine; an
     injected operator runs through the masked-XLA formulation path,
     which XLA fuses per sweep.  An operator whose ``relax`` is itself a
-    ``pallas_call`` gets kernel performance with no engine changes.
+    custom kernel gets kernel performance with no engine changes.
 
 Contract for implementers:
 
@@ -114,7 +114,7 @@ class PoissonOperator(MGOperator):
     """The default operator, as an explicit value: second-order
     red-black Gauss-Seidel Poisson (ops/stencils.py; reference
     ndsm_optimized.f90:40,346).  ``MGEngine(operator=None)`` encodes
-    exactly this with its Pallas/compact fast paths enabled; injecting
+    exactly this with its compact fast path enabled; injecting
     ``PoissonOperator()`` runs the same math through the generic
     operator route (masked XLA formulation) — tests pin the two
     bitwise-equal against the masked smoother."""
@@ -218,10 +218,9 @@ class DiffusionOperator(MGOperator):
 
     Performance note: the face coefficients are (re)computed inside the
     traced relax/residual, so within the engine's cycle ``while_loop``
-    XLA re-materializes them per iteration (loop-invariant iota chains
-    are not hoisted on this backend — PERF_NOTES round 4).  That is the
-    documented cost tier of the generic operator route; an operator
-    whose ``relax`` is a ``pallas_call`` closing over precomputed
+    XLA may re-materialize them per iteration.  That is the documented
+    cost tier of the generic operator route; an operator whose
+    ``relax`` is a custom kernel closing over precomputed
     coefficient arrays gets kernel performance with no engine changes.
     """
 

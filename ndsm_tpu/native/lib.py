@@ -8,36 +8,56 @@ marshalling.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
+import tempfile
 from typing import Optional, Sequence
 
 import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "ndsm_core.cc")
-_SO = os.path.join(_HERE, "libndsm_core.so")
+#: Build output directory (listed in .gitignore: binaries are never
+#: committed, each checkout builds its own from ndsm_core.cc).
+_BUILD_DIR = os.path.join(_HERE, "_build")
+_CXXFLAGS = ("-O3", "-fPIC", "-shared", "-fopenmp", "-std=c++17")
 
 _lib: Optional[ctypes.CDLL] = None
 
 
+def _so_path() -> str:
+    """Library path keyed by the source and the flags, so an edited
+    source or a changed flag set can never load a stale binary."""
+    h = hashlib.sha256()
+    with open(_SRC, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(_CXXFLAGS).encode())
+    return os.path.join(_BUILD_DIR, f"libndsm_core-{h.hexdigest()[:16]}.so")
+
+
 def build(force: bool = False) -> str:
-    """Compile the shared library with g++ -O3 -fopenmp.  Returns its path."""
-    if force or not os.path.exists(_SO) or os.path.getmtime(_SO) < os.path.getmtime(_SRC):
-        cmd = [
-            "g++",
-            "-O3",
-            "-march=native",
-            "-fPIC",
-            "-shared",
-            "-fopenmp",
-            "-std=c++17",
-            _SRC,
-            "-o",
-            _SO,
-        ]
-        subprocess.run(cmd, check=True, capture_output=True)
-    return _SO
+    """Compile the shared library with g++ (portable flags: no
+    ``-march=native``) into ``_build/``.  Returns its path.  The output
+    is written under a temporary name and renamed into place, so
+    concurrent first uses (parallel test workers) never load a
+    half-written file."""
+    so = _so_path()
+    if force or not os.path.exists(so):
+        os.makedirs(_BUILD_DIR, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+        os.close(fd)
+        try:
+            subprocess.run(
+                ["g++", *_CXXFLAGS, _SRC, "-o", tmp],
+                check=True,
+                capture_output=True,
+            )
+            os.replace(tmp, so)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return so
 
 
 def get_lib() -> ctypes.CDLL:

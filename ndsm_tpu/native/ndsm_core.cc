@@ -5,7 +5,7 @@
 // loop-level implementation of the red-black Gauss-Seidel sweep, the
 // Poisson residual, and the coordinate-based transfer operators.  Within
 // ndsm_tpu it serves as (a) a fast independent differential-test oracle
-// for the XLA/Pallas kernels and (b) a no-JAX CPU fallback backend.
+// for the XLA kernels and (b) a no-JAX CPU backend.
 //
 // Array convention: C-ordered (row-major); axis `ndim-1` is the
 // fastest-varying axis and corresponds to the reference's Fortran

@@ -73,9 +73,9 @@ def curl(A: jax.Array, dq: jax.Array) -> jax.Array:
 #
 # Why these exist: B = curl(A) is the last pipeline stage and, under the
 # default flux-correction order, is a pure function of the RETURNED A.
-# On hosts whose device link is slow relative to host memory bandwidth
-# (e.g. tunneled runtimes at ~25 MB/s download), shipping B (same bytes
-# as A again) dwarfs the whole solve; computing the curl on the host
+# On hosts whose device link is slow relative to host memory bandwidth,
+# shipping B (same bytes as A again) can dwarf the solve; computing the
+# curl on the host
 # from the already-downloaded A halves the result traffic.  The operand
 # order matches the XLA forms exactly, but XLA fuses multiply-adds into
 # FMAs (single rounding), so agreement is at the ~1-2 ulp level

@@ -1,7 +1,7 @@
 """Second-order Poisson stencil kernels: red-black Gauss-Seidel sweep and
 residual, for any number of dimensions.
 
-TPU-native functional re-design of the reference's in-place OpenMP loops:
+Functional (array-at-a-time) re-design of the reference's in-place OpenMP loops:
 
   * ``red_black_gauss_3D`` / ``red_black_gauss_2D``
     (reference: fortran/ndsm_optimized.f90:40,199) and the generic N-D

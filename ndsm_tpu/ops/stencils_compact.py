@@ -1,7 +1,7 @@
 """Color-compact red-black Gauss-Seidel sweep.
 
 The masked formulation (ops/stencils.py) updates half the points per pass
-but still streams the FULL u array through HBM twice per sweep
+but still streams the FULL u array through device memory twice per sweep
 (~6 array-traffic units).  Storing the two colors as separate half-width
 arrays cuts a sweep to ~3 units at plain-XLA level — each half-update
 reads only the opposite color + its own rhs half and writes its own half.

@@ -7,8 +7,8 @@ fortran/ndsm_interp.f90:85,186).  Because every mesh is uniform per axis
 (coarse meshes are regenerated linspaces, ndsm_multigrid_core.f90:253-259),
 both operators are exactly *separable*: the N-D weight is a product of
 per-axis 1-D weights.  We therefore precompute one small dense matrix per
-axis and apply them as per-axis contractions — on TPU these run on the MXU
-instead of doing gather traffic, and they shard trivially.
+axis and apply them as per-axis contractions — dense matrix products
+instead of gather traffic, and they shard trivially.
 
 Per-axis weights (identical math to the reference):
 
@@ -105,35 +105,19 @@ def restrict_matrix_1d(qc: np.ndarray, qf: np.ndarray) -> np.ndarray:
     return R
 
 
-def _transfer_precision():
-    """MXU precision for the transfer contractions.  HIGHEST (default)
-    emulates true f32 via six bf16 passes on TPU; "default" uses the
-    faster three-pass form (~bf16x3, still ~f32-accurate for these
-    short banded contractions).  The mixed-precision outer defect makes
-    inner-transfer precision a convergence-rate knob, not an accuracy
-    one — NDSM_TPU_TRANSFER_PRECISION=default is the measurement
-    toggle (PERF_NOTES round 7)."""
-    import os
-
-    mode = os.environ.get("NDSM_TPU_TRANSFER_PRECISION", "highest").lower()
-    return (
-        jax.lax.Precision.DEFAULT
-        if mode == "default"
-        else jax.lax.Precision.HIGHEST
-    )
-
-
 def apply_axis_matrices(x: jax.Array, mats: Sequence[np.ndarray]) -> jax.Array:
     """Apply one matrix per axis: ``y = (M_0 ⊗ M_1 ⊗ ...) x``.
 
-    Each contraction is a dense matmul on the MXU.  HIGHEST precision keeps
-    float32 runs at true f32 accuracy (TPU would otherwise use bf16 passes).
+    Each contraction is a dense matmul.  HIGHEST precision keeps float32
+    runs at true f32 accuracy (a GPU would otherwise compute float32
+    products in TF32, which keeps about three decimal digits).
     """
-    prec = _transfer_precision()
     for ax, m in enumerate(mats):
         mj = jnp.asarray(m, dtype=x.dtype)
         x = jnp.moveaxis(x, ax, 0)
-        x = jnp.tensordot(mj, x, axes=([1], [0]), precision=prec)
+        x = jnp.tensordot(
+            mj, x, axes=([1], [0]), precision=jax.lax.Precision.HIGHEST
+        )
         x = jnp.moveaxis(x, 0, ax)
     return x
 

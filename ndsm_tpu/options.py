@@ -9,6 +9,7 @@ the same knobs and the same defaults (reference: ndsm.py:66).
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Tuple
 
 # Error codes (reference: fortran/ndsm_poisson.f90:46-47)
@@ -46,9 +47,9 @@ class Options:
       precision: "fp64" runs the whole algorithm in float64 (reference
         semantics); "mixed" runs each V-cycle in float32 inside an outer
         float64 defect-correction loop, which is algebraically equivalent
-        for this linear problem and much faster on TPU; "fp32" runs
-        everything in float32 (loose tolerances only). "auto" selects
-        "mixed" on TPU and "fp64" on CPU.
+        for this linear problem and moves half the bytes per V-cycle;
+        "fp32" runs everything in float32 (loose tolerances only).
+        "auto" selects "fp64" on the CPU and "mixed" on any other device.
       flux_correction_order: 0 (default) adds the analytic flux-balance
         vector potential first and then takes the numerical curl;
         1 takes the curl first and adds both analytic corrections
@@ -57,9 +58,8 @@ class Options:
         downloaded A instead of on-device — same expressions, agreement
         at the 1-2 ulp level (XLA fuses FMAs; ~1e-14 relative, eight
         orders below the fields' h^2 truncation error) and HALF the
-        result download.  Worth it when the host<->device link is slow
-        relative to host memory bandwidth (e.g. tunneled runtimes);
-        counterproductive on a local PCIe host, hence default off.
+        result download.  Worth it only when the host<->device link is
+        slow relative to host memory bandwidth, hence default off.
         Honored only for flux_correction_order=0 (the default, where B
         is a pure function of the returned A) and non-distributed runs;
         otherwise the device path is used.  Works for both output
@@ -83,42 +83,27 @@ class Options:
     ms: int = 5
     ncycles_max: int = 1024
     niterex_max: int = 10000
-    #: Fused multi-sweep Pallas TPU smoother (ops/pallas_fused.py) for the
-    #: float32 3D smoothing path: "auto" probes the backend at first use
-    #: and falls back to XLA on failure; "on" forces it; "off" disables.
-    #: Env override NDSM_TPU_PALLAS=0/1/interpret (see utils/compat.py).
-    use_pallas: str = "auto"
     #: Mixed precision: f32 V-cycles run against ONE f64 defect in
     #: deterministic groups of up to this many cycles (the group also
-    #: stops when the per-cycle du drops under vc_tol).  The f64 defect
-    #: pass is ~6x the cost of an f32 V-cycle on TPU (software-emulated
-    #: f64), so amortizing it across the ~7 decades of convergence one
-    #: f32 solve supports is most of mixed-mode's speed.  1 recovers the
-    #: strict one-V-cycle-per-defect iteration (used by checkpointed
-    #: solves so chunking cannot split a group).
+    #: stops when the per-cycle du drops under vc_tol), amortizing the
+    #: f64 defect pass across the ~7 decades of convergence one f32
+    #: solve supports.  1 recovers the strict one-V-cycle-per-defect
+    #: iteration (used by checkpointed solves so chunking cannot split
+    #: a group).
     mixed_inner_max: int = 6
-    #: Mixed-mode defect arithmetic: "f64" computes the outer residual /
-    #: update in (software-emulated) float64 XLA; "df32" uses the
-    #: double-float Pallas kernel (ops/pallas_df.py) — two f32 words per
-    #: value, compensated stencil arithmetic, ~2^-48 relative precision,
-    #: running at f32 kernel rates instead of emulated-f64 (the du floor
-    #: rises from ~1e-16 to ~1e-13, still 3 decades under the vc_tol
-    #: contract).  "auto" = df32 whenever the Pallas smoother stack is
-    #: active and the fine level is kernel-eligible, else f64.
-    mixed_defect: str = "auto"
     #: Coarsest-grid solver: "relax" iterates to ex_tol exactly like the
     #: reference (ndsm_multigrid_core.f90:728); "direct" applies a
     #: precomputed dense (pseudo)inverse in one matvec (same limit, no
     #: while_loop latency); "auto" = direct for mixed/fp32, relax for fp64.
     coarse_solver: str = "auto"
     #: Smoother formulation: "auto"/"compact" uses color-compact storage
-    #: (half the HBM traffic per sweep, rounding-identical results);
+    #: (half the memory traffic per sweep, rounding-identical results);
     #: "masked" uses the dense masked-update formulation.
     smoother: str = "auto"
     #: Solve the three 3D component problems (different BCs per lane) as
     #: ONE lane-masked program (mg/batched.MultiBCSolver) instead of
-    #: sequentially: "auto"/"on"/"off".  Identical per-lane iterate
-    #: sequences; amortizes coarse-level latency and dispatch.
+    #: sequentially: "on" batches; "auto" and "off" run them one after
+    #: another.  Identical per-lane iterate sequences.
     batch_components: str = "auto"
     #: dtype of the returned A and B arrays. "float64" matches the
     #: reference ABI exactly; "float32" halves output memory/transfer —
@@ -145,6 +130,9 @@ class Options:
     honor_ms_for_az: bool = True
     reference_flux_quirk: bool = False
 
+    def __post_init__(self):
+        _reject_removed_knobs()
+
     @property
     def du_max(self) -> bool:
         """True when the max-metric is in use (reference IOPT_DUMAX)."""
@@ -158,6 +146,37 @@ class Options:
 
             platform = jax.devices()[0].platform
         return "fp64" if platform == "cpu" else "mixed"
+
+
+#: Environment variables that once selected kernels, collectives or
+#: precisions this package no longer has.  Setting one is an error, so
+#: a configuration written for them cannot silently run something else.
+REMOVED_ENV_KNOBS = (
+    "NDSM_TPU_PALLAS",
+    "NDSM_TPU_PALLAS_MIN_POINTS",
+    "NDSM_TPU_PALLAS_NSWEEPS",
+    "NDSM_TPU_PALLAS_2D",
+    "NDSM_TPU_PALLAS2D_MIN_POINTS",
+    "NDSM_TPU_ZC_VMEM",
+    "NDSM_TPU_ZC_SCOPED",
+    "NDSM_TPU_ZC_TILES",
+    "NDSM_TPU_ZC_HALO_ARGS",
+    "NDSM_TPU_ZC_EXT_OUT",
+    "NDSM_TPU_PSUM_ONLY",
+    "NDSM_TPU_NO_CALLBACKS",
+    "NDSM_TPU_TRANSFER_PRECISION",
+    "NDSM_TPU_HBM_BYTES",
+)
+
+
+def _reject_removed_knobs() -> None:
+    found = [k for k in REMOVED_ENV_KNOBS if k in os.environ]
+    if found:
+        raise ValueError(
+            f"environment variable(s) {', '.join(found)} no longer have "
+            "any effect: the kernels, collectives and precisions they "
+            "selected were removed; unset them"
+        )
 
 
 @dataclasses.dataclass

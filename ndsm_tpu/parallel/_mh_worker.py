@@ -1,12 +1,12 @@
 """Multi-process CPU validation worker (run via ``python -m
 ndsm_tpu.parallel._mh_worker``) — one process of the two-level
-DCN-outer/ICI-inner mesh dry run.
+host-outer/device-inner mesh dry run.
 
 Env: NDSM_MH_COORD (host:port), NDSM_MH_NPROC, NDSM_MH_PID,
 NDSM_MH_NDEV (virtual CPU devices per process).  Each process runs the
 SAME sharded solve over a (nproc, ndev) mesh — z partitioned across
-processes (the DCN stand-in), y across each process's devices (the ICI
-stand-in) — and process 0 prints ``MH_CHECKSUM <sum> <cycles>`` for the
+processes (the host network's stand-in), y across each process's
+devices — and process 0 prints ``MH_CHECKSUM <sum> <cycles>`` for the
 parent to compare against the single-process result.
 """
 

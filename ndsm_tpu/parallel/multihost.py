@@ -1,15 +1,15 @@
-"""Multi-host (multi-process) distribution: DCN-outer / ICI-inner meshes.
+"""Multi-host (multi-process) distribution: host-outer / device-inner meshes.
 
 The reference is strictly single-node shared-memory (OpenMP,
-README.md:100-103); this layer scales the solver across pod slices and
+README.md:100-103); this layer scales the solver across devices and
 hosts (BASELINE config 5: 1024^3 vector-potential solve).  Layout:
 
   * array axis 0 (z) is partitioned across HOSTS — its 1-plane-deep halo
     exchanges are the only traffic that crosses the data-center network,
     a few MB per sweep at 1024^3;
-  * array axis 1 (y) is partitioned across the chips within each host,
-    so the per-sweep halo volume rides ICI;
-  * coarse levels below the threshold are replicated per chip as in the
+  * array axis 1 (y) is partitioned across the devices within each host,
+    so the per-sweep halo volume rides the host's device interconnect;
+  * coarse levels below the threshold are replicated per device as in the
     single-host engine (the latency-bound coarse solve never touches any
     network).
 
@@ -41,8 +41,7 @@ def init_distributed(
 ) -> None:
     """Initialize jax.distributed from arguments or the standard
     environment (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
-    JAX_PROCESS_ID; on TPU pods all three are auto-detected by JAX from
-    the TPU metadata and may be omitted).  Idempotent."""
+    JAX_PROCESS_ID).  Idempotent."""
     if jax.process_count() > 1:
         return  # already initialized
     kw = {}
@@ -67,13 +66,14 @@ def make_multihost_mesh(
     axis_names: Sequence[str] = ("z", "y"),
     per_host: Optional[int] = None,
 ) -> Mesh:
-    """(n_hosts, chips_per_host) device mesh with the HOST axis first:
+    """(n_hosts, devices_per_host) device mesh with the HOST axis first:
     partitioning array axis 0 over ``axis_names[0]`` puts only z-plane
-    halos on DCN while axis 1's halos stay on each host's ICI.
+    halos on the host network while axis 1's halos stay on each host's
+    device interconnect.
 
-    ``per_host`` overrides chips-per-host (defaults to the uniform local
+    ``per_host`` overrides devices-per-host (defaults to the uniform local
     device count).  For a single process this degenerates to a (1, n)
-    mesh — same program, no DCN axis."""
+    mesh — same program, no cross-host axis."""
     devs = sorted(jax.devices(), key=lambda d: (d.process_index, d.id))
     n_proc = jax.process_count()
     if per_host is None:

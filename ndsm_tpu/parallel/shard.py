@@ -12,7 +12,7 @@ Two mechanisms are provided:
   * ``ShardSpec`` + GSPMD sharding constraints (this module): the whole
     V-cycle program is annotated per level and XLA inserts the halo
     exchanges / collectives.  This is the default multi-chip path: the
-    stencil's shifted-slice reads become 1-deep halo transfers over ICI,
+    stencil's shifted-slice reads become 1-deep halo transfers between devices,
     reductions become cross-shard collectives, and the sharded<->replicated
     seam at the threshold level becomes a gather/slice pair.
   * ``ndsm_tpu.parallel.sm_engine``: an explicit shard_map + ppermute

@@ -10,7 +10,62 @@ from typing import Tuple
 
 import numpy as np
 
-__all__ = ["power_law_fit", "potential_field_case", "build_test_mesh"]
+__all__ = [
+    "power_law_fit",
+    "potential_field_case",
+    "build_test_mesh",
+    "GOLDEN",
+    "golden_targets",
+    "accuracy_gate",
+]
+
+# Golden rows (reference tests/integration_test/results_test1.txt, the
+# max-metric table; BASELINE.md): n -> (Ea_max, Eb_max, ref_time_s).
+GOLDEN = {
+    22: (1.86048e-03, 7.65805e-02, 5.468e-01),
+    44: (4.44560e-04, 1.95261e-02, 1.141e00),
+    66: (1.94618e-04, 8.72558e-03, 4.344e00),
+    77: (1.42398e-04, 6.42133e-03, 7.923e00),
+    88: (1.08647e-04, 4.92049e-03, 1.173e01),
+    99: (8.56395e-05, 3.89144e-03, 1.587e01),
+    160: (3.25317e-05, 1.49319e-03, 6.701e01),
+    176: (2.68552e-05, 1.23446e-03, 8.930e01),
+    220: (1.71483e-05, 7.90579e-04, 1.741e02),
+}
+
+# h^2 prefactors fitted to the golden table (errors = a * dx^2), for
+# gating non-golden sizes.
+_EA_PREFAC = 1.86048e-03 / 4.76190e-02**2
+_EB_PREFAC = 7.65805e-02 / 4.76190e-02**2
+
+#: Relative tolerance of the golden-digit gate and of the h^2-trend gate.
+GOLDEN_RTOL = 2e-3
+TREND_RTOL = 0.2
+
+
+def golden_targets(n: int) -> Tuple[float, float, bool]:
+    """(Ea_max, Eb_max, is_golden) expected for the analytic case on the
+    n^3 integration-test mesh: the golden row when there is one, else
+    the fitted h^2 law."""
+    if n in GOLDEN:
+        return GOLDEN[n][0], GOLDEN[n][1], True
+    dx = 1.0 / (n - 1)
+    return _EA_PREFAC * dx**2, _EB_PREFAC * dx**2, False
+
+
+def accuracy_gate(n: int, ea_max: float, eb_max: float) -> Tuple[bool, str]:
+    """The benchmark's accuracy gate: golden sizes must match the golden
+    digits within 2e-3 relative; other sizes must lie within 20% of the
+    h^2 trend.  Returns (ok, description)."""
+    g_ea, g_eb, golden = golden_targets(n)
+    rtol = GOLDEN_RTOL if golden else TREND_RTOL
+    ok = abs(ea_max - g_ea) < rtol * g_ea and abs(eb_max - g_eb) < rtol * g_eb
+    kind = "golden" if golden else "h^2 trend"
+    return ok, (
+        f"Ea_max={ea_max:.5e} (target {g_ea:.5e}) "
+        f"Eb_max={eb_max:.5e} (target {g_eb:.5e}) "
+        f"{kind} gate rtol={rtol:g}: {'pass' if ok else 'FAIL'}"
+    )
 
 
 def power_law_fit(x: np.ndarray, y: np.ndarray, cov: bool = False):

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""BASELINE.json configs 1-2 on chip: the small-problem Poisson-backend
+"""BASELINE.json configs 1-2 on the accelerator: the small-problem Poisson-backend
 configurations that the headline/512^3 benches don't cover.
 
   1. 3D 64^3 Dirichlet Poisson, analytic sinusoidal RHS, max metric,

@@ -88,8 +88,8 @@ def test_nonuniform_mesh_returns_ierr_badmesh():
     results instead of crashing (every dq is taken as m[1]-m[0], and the
     transfer matrices assume uniform spacing — as does the reference,
     ndsm_interp.f90:373): the API flags it instead of silently returning
-    wrong fields (VERDICT r4 weak #4).  Outputs follow the error-path
-    contract in the caller's resolved dtype (ADVICE r4)."""
+    wrong fields.  Outputs follow the error-path contract in the
+    caller's resolved dtype."""
     from ndsm_tpu.options import IERR_BADMESH
 
     n = 8

@@ -74,43 +74,3 @@ def test_pipeline_batch_toggle_equivalence():
     )
     np.testing.assert_allclose(A_on, A_off, rtol=0, atol=1e-11)
     np.testing.assert_allclose(B_on, B_off, rtol=0, atol=1e-9)
-
-
-def test_batched_padded_matches_sequential(monkeypatch):
-    """Unaligned size on padded work storage (interpret kernels): the
-    batched solver plans padding (_padded[0]) and reproduces the
-    sequential padded PoissonBVP solves (same cycles, same solutions)."""
-    monkeypatch.setenv("NDSM_TPU_PALLAS", "interpret")
-    monkeypatch.setenv("NDSM_TPU_PALLAS_MIN_POINTS", "0")
-    n = 22  # ny % 8 != 0, nx % 128 != 0
-    x = np.linspace(0, 1, n)
-    h = GridHierarchy.from_mesh((x, x, x))
-    u0s = _component_u0s(n, np.random.default_rng(3))
-    opts = Options(precision="mixed")
-    mbs = MultiBCSolver(h, COMPONENT_BCS, opts)
-    assert mbs._padded[0] and mbs._work_shapes[0] == (22, 24, 128)
-    u_b, infos_b = mbs.solve(np.stack(u0s), names=["Ax", "Ay", "Az"])
-    for c in range(3):
-        bvp = PoissonBVP(h, COMPONENT_BCS[c], opts)
-        u_s, info_s = bvp.solve(u0s[c], None, zero_rhs=True)
-        assert infos_b[c].ierr == 0
-        assert infos_b[c].cycles == info_s.cycles
-        d = np.abs(np.asarray(u_b[c]) - np.asarray(u_s)).max()
-        assert d <= 5e-9, (c, d)
-
-
-def test_zc_covers_and_auto_gate():
-    """zc_covers_3d: direct at aligned shapes, padded at unaligned ones
-    (interpret covers unaligned directly, so probe compiled mode)."""
-    from ndsm_tpu.ops import pallas_zc
-
-    bcs = (("D", "D"), ("N", "N"), ("D", "D"))
-    assert pallas_zc.zc_covers_3d((16, 16, 128), bcs, 2)
-    assert pallas_zc.zc_covers_3d((220, 220, 220), bcs, 2)  # via padding
-    assert not pallas_zc.zc_covers_3d(
-        (220, 220, 220), bcs, 2, allow_padded=False
-    )
-    assert not pallas_zc.zc_covers_3d((221, 220, 220), bcs, 2)  # odd nz
-    assert pallas_zc.padded_shape_3d((220, 220, 220)) == (220, 224, 256)
-    assert pallas_zc.padded_shape_3d((16, 16, 128)) is None
-    assert pallas_zc.padded_shape_3d((221, 16, 128)) is None

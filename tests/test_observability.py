@@ -1,7 +1,6 @@
 """Observability: coarse-solve non-convergence flag + warning, per-phase
 debug trace, batched-solve timing honesty.  All diagnostics are emitted
-host-side AFTER results are fetched, so behavior is identical on platforms
-with and without host-callback support (the reference prints via bare
+host-side AFTER results are fetched (the reference prints via bare
 PRINT * / debug_msg — ndsm_multigrid_core.f90:796-798,
 ndsm_vector_potential.f90:257-487)."""
 
@@ -21,25 +20,14 @@ def _tiny_bvp(**opt_kw):
     return bvp, rhs
 
 
-@pytest.mark.parametrize("no_callbacks", [False, True])
-def test_coarse_noconv_flag_and_warning(no_callbacks, monkeypatch, capfd):
+def test_coarse_noconv_flag_and_warning(capfd):
     """niterex_max=1 starves the relax coarse solve: the flag must be set
-    in SolveInfo and the reference warning printed — with and without
-    host-callback support (NDSM_TPU_NO_CALLBACKS)."""
-    if no_callbacks:
-        monkeypatch.setenv("NDSM_TPU_NO_CALLBACKS", "1")
-        from ndsm_tpu.utils import compat
-
-        compat.callbacks_supported.cache_clear()
+    in SolveInfo and the reference warning printed."""
     bvp, rhs = _tiny_bvp(coarse_solver="relax", niterex_max=1, ncycles_max=3)
     u, info = bvp.solve(np.zeros_like(rhs), rhs)
     assert info.coarse_noconv is True
     err = capfd.readouterr().err
     assert "IOPT_NMAXEX exceeded" in err
-    if no_callbacks:
-        from ndsm_tpu.utils import compat
-
-        compat.callbacks_supported.cache_clear()
 
 
 def test_coarse_converged_flag_clear(capfd):

@@ -2,7 +2,7 @@
 
 The reference engine is operator-agnostic via the MG_RELAX/MG_RESIDUAL
 abstract interfaces (fortran/ndsm_multigrid_core.f90:106-136); these
-tests pin the TPU counterpart: loop-level oracles for the non-Poisson
+tests pin the JAX counterpart: loop-level oracles for the non-Poisson
 client (HelmholtzOperator), bitwise equivalence of the generic routing
 against the built-in Poisson path, dense-solve oracles end-to-end
 through solve_poisson_bvp, h^2 truncation scaling, mixed precision
@@ -143,7 +143,7 @@ def test_poisson_operator_generic_route_bitwise():
     h = GridHierarchy.from_mesh((x, x, x))
     bcs = (("D", "D"), ("N", "D"), ("D", "N"))
     rhs = _rand((n, n, n), 4)
-    opts = Options(precision="fp64", smoother="masked", use_pallas="off")
+    opts = Options(precision="fp64", smoother="masked")
     bvp0 = PoissonBVP(h, bcs, opts)
     bvp1 = PoissonBVP(h, bcs, opts, operator=PoissonOperator())
     u0 = np.zeros((n, n, n))

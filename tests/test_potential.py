@@ -215,43 +215,6 @@ def test_fetch_split16_encoding_accuracy():
     assert np.array_equal(got_A, want_A)  # bit-exact => raw path
 
 
-def test_fetch_split16_fallback_on_broken_toolchain(monkeypatch, capfd):
-    """A toolchain that cannot run the split16 program (e.g. no int16
-    lowering) falls back to raw float64 downloads with a warning, and
-    stays on the raw path for subsequent calls."""
-    import jax.numpy as jnp
-
-    from ndsm_tpu.potential import vector_potential as vp
-
-    rng = np.random.default_rng(9)
-    A = rng.standard_normal((3, 12, 8, 10))
-    A_dev = jnp.asarray(A)
-    dq = (0.1, 0.1, 0.1)
-
-    class _Boom:
-        def get(self, key):
-            if key[-1] is True:  # the split16-encoded program
-                return _raise
-            return None
-
-        def put(self, *a):
-            pass
-
-    def _raise(_a):
-        raise RuntimeError("no int16 on this toolchain")
-
-    monkeypatch.setenv("NDSM_TPU_SPLIT16_MIN_MB", "0")
-    monkeypatch.setattr(vp, "_SLAB_SPLIT_CACHE", _Boom())
-    monkeypatch.setattr(vp, "_SPLIT16_BROKEN", False)
-    got_A, got_B = vp._fetch_and_curl_pipelined(
-        A_dev, dq, "float64", lambda *a, **k: None, encoding="split16"
-    )
-    assert vp._SPLIT16_BROKEN
-    assert np.array_equal(got_A, np.asarray(A_dev))
-    assert "split16 fetch encoding unavailable" in capfd.readouterr().err
-    monkeypatch.setattr(vp, "_SPLIT16_BROKEN", False)
-
-
 def test_host_curl_pipeline_identical():
     """vector_potential with Options.host_curl=True returns the default
     path's (A, B): A bitwise (identical device computation), B at the

@@ -64,6 +64,6 @@ def test_power_law_fit_cov():
 
 
 def test_options_precision_resolution():
-    assert Options(precision="fp64").resolve_precision("tpu") == "fp64"
+    assert Options(precision="fp64").resolve_precision("gpu") == "fp64"
     assert Options().resolve_precision("cpu") == "fp64"
-    assert Options().resolve_precision("tpu") == "mixed"
+    assert Options().resolve_precision("gpu") == "mixed"
